@@ -165,5 +165,6 @@ def bench_spmv(matrix, name: str = "random", config=None, repeats: int = 50,
         fill_factor=sm.fill_factor(),
         gnnz_s=nnz / total_s / 1e9, gflop_s=2 * nnz / total_s / 1e9,
         roofline_frac=roofline, verify_errors=errors,
-        layout_g=sm.packed.GLW if sm.packed is not None else 0,
+        layout_g=(getattr(sm.packed, "GLW", None) or sm.packed.G)
+        if sm.packed is not None else 0,
         layout_q=sm.packed.Q if sm.packed is not None else 0)

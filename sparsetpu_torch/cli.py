@@ -30,12 +30,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="vector factor / row-pad quantum (VF); 0 = chosen "
                         "by the layout model")
     p.add_argument("--partitions", type=int, default=1,
-                   help="row partitions (CU); > 1 is not ported yet")
+                   help="row partitions (CU), nnz-balanced")
     p.add_argument("--backend", default="auto",
                    choices=("auto", "fused", "coo"),
-                   help="auto and fused take the fused CUDA kernel (fused "
-                        "errors when the layout does not apply); coo is "
-                        "gather + index_add_")
+                   help="auto routes as the JAX package (fused, hybrid "
+                        "or classic GStream kernels); fused errors when the "
+                        "fused layout does not apply; coo is gather + "
+                        "index_add_")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--repeats", type=int, default=50,
                    help="timed calls (median reported)")
@@ -47,9 +48,6 @@ def main(argv=None) -> int:
     if args.double:
         raise NotImplementedError("--double: the f64 devices are not "
                                   "ported yet (ROADMAP Queue 1 #6)")
-    if args.partitions > 1:
-        raise NotImplementedError("--partitions > 1: row partitions are "
-                                  "not ported yet (ROADMAP Queue 1 #4)")
 
     from . import _host
     from .bench.harness import bench_spmv

@@ -1,7 +1,8 @@
 """Build the port's CUDA sources into one shared library and load it.
 
 ``nvcc`` compiles ``sparsetpu_torch/csrc/*.cu`` for ``sm_90a`` into
-``build/sparsetpu_torch/`` beside the package, at first use.  The library
+``build/sparsetpu_torch/`` beside the package, at first use: one compiler
+per source, all at once, then one link.  The library
 exposes plain C entry points, bound with ctypes (every pointer and the
 stream as ``c_void_p``), so nothing includes PyTorch's headers and a build
 takes seconds.  The file name carries a hash of the sources and flags: an
@@ -23,7 +24,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "sparsetpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 
 class _Library:
@@ -52,6 +53,36 @@ def _nvcc() -> str:
     return path
 
 
+def _compile_and_link(sources, out: str) -> str:
+    """One nvcc per source, all started together, then one link into
+    ``out``; returns what the compilers printed (``-Xptxas -v``)."""
+    nvcc = _nvcc()
+    procs = []
+    for src in sources:
+        obj = f"{out}.{os.path.basename(src)}.o"
+        procs.append((obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    log, failed = [], []
+    for obj, proc in procs:
+        _, err = proc.communicate(timeout=600)
+        log.append(err)
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {obj} (rc={proc.returncode}):\n"
+                          f"{err[-8000:]}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    objs = [obj for obj, _ in procs]
+    proc = subprocess.run([nvcc, "-shared", "-o", out, *objs],
+                          capture_output=True, text=True, timeout=600)
+    for obj in objs:
+        os.remove(obj)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed (rc={proc.returncode}):\n"
+                           f"{proc.stderr[-8000:]}")
+    return "".join(log)
+
+
 def library() -> _Library:
     """Build (if needed) and load the kernels' library."""
     if _LIBRARY.lib is not None:
@@ -67,18 +98,18 @@ def library() -> _Library:
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
         tmp = f"{path}.{os.getpid()}.tmp"
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                              capture_output=True, text=True, timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (rc={proc.returncode}):\n"
-                               f"{proc.stderr[-8000:]}")
+        _LIBRARY.log = _compile_and_link(sources, tmp)
         os.replace(tmp, path)   # atomic: concurrent builds agree
-        _LIBRARY.log = proc.stderr
     _LIBRARY.build_s = time.perf_counter() - t0
     lib = ctypes.CDLL(path)
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.fused_spmv_launch.restype = i
     lib.fused_spmv_launch.argtypes = [p] * 12 + [i] * 11 + [p]
+    lib.gstream_spmv_launch.restype = i
+    lib.gstream_spmv_launch.argtypes = [p, i] + [p] * 5 + [ll] + [i] * 4 \
+        + [p]
+    lib.gstream_final_launch.restype = i
+    lib.gstream_final_launch.argtypes = [i] + [p] * 7 + [ll] + [i] * 4 + [p]
     lib.sparsetpu_error_string.restype = ctypes.c_char_p
     lib.sparsetpu_error_string.argtypes = [i]
     _LIBRARY.lib, _LIBRARY.path = lib, path

@@ -1,9 +1,12 @@
 """sparsetpu_torch.SparseMatrix: routing as the JAX package routes, the
 COO backend, the module functions and the CLI.
 
-Only the fused layout is ported; where ``sparsetpu.SparseMatrix`` would take
-the classic GStream device, the heavy-row hybrid, f64, bf16 or row
-partitions, the port raises ``NotImplementedError``.
+Every f32 route of ``sparsetpu.SparseMatrix`` is ported: the fused layout,
+the heavy-row hybrid, the classic GStream device (wide x, ``block_cols <
+16384``, bf16 values) and row partitions; each case takes the same device
+kind as the JAX package and gives the same y (rtol 1e-5, atol 1e-5 *
+max(1, max|y|): the same f32 terms summed in another order).  f64 still
+raises ``NotImplementedError``.
 """
 
 import os
@@ -19,6 +22,7 @@ from sparsetpu.formats.csr import CSRMatrix
 from sparsetpu.formats.gold import default_tolerance, spmv_gold, verification
 from sparsetpu.formats.random import random_csr
 from sparsetpu.kernels.spmv_fused import FusedDevice as JaxFusedDevice
+from sparsetpu.kernels.spmv_pallas import GStreamDevice as JaxGStreamDevice
 from sparsetpu.pack.fused import MAX_RESIDENT_COLS, pack_fused
 from sparsetpu.utils.config import SpmvConfig
 import sparsetpu_torch as st
@@ -67,21 +71,47 @@ def test_same_route_and_y_as_jax():
                                   y)
 
 
+def _same_y(m, cfg, x, jsm, sm):
+    """y of the port equals the JAX package's and passes the gold."""
+    y_jax = np.asarray(jsm @ x)
+    y = (sm @ x).numpy()
+    atol = 1e-5 * max(1.0, float(np.abs(y_jax).max()))
+    np.testing.assert_allclose(y, y_jax, rtol=1e-5, atol=atol)
+    _gold_ok(m, x, y)
+
+
 def test_heavy_rows_raise_where_jax_leaves_the_plain_fused_device():
+    """(The name dates from before the hybrid was ported.)  Heavy rows take
+    the hybrid in both packages: the light rows fused, the heavy rows on a
+    classic device, y added back at the heavy rows."""
     m = _heavy_matrix()
+    x = np.random.default_rng(2).standard_normal(m.nr_cols)
     jsm = JaxSparseMatrix(m, SpmvConfig(dtype=np.float32), interpret=True)
-    assert jsm._heavy_dev is not None or \
-        not isinstance(jsm._device, JaxFusedDevice)
-    with pytest.raises(NotImplementedError, match="Queue 1 #4"):
-        st.SparseMatrix(m, device="cpu")
+    assert jsm._heavy_dev is not None
+    sm = st.SparseMatrix(m, device="cpu")
+    assert sm.fused_device is not None and sm.heavy_device is not None
+    assert np.array_equal(sm._heavy_rows.numpy(),
+                          np.asarray(jsm._heavy_rows))
+    assert np.array_equal(sm.heavy_device.meta.values,
+                          jsm._heavy_dev.meta.values)
+    _same_y(m, None, x, jsm, sm)
+    np.testing.assert_array_equal(sm.spmv_packed_x(sm.prepare_x(x)).numpy(),
+                                  (sm @ x).numpy())
 
 
 def test_wide_x_raises_where_jax_goes_classic():
+    """(The name dates from before the classic device was ported.)  x wider
+    than the resident budget goes wholly classic in both packages;
+    ``backend="fused"`` still raises."""
     m = random_csr(10, MAX_RESIDENT_COLS + 1024, density=1e-5, seed=0,
                    dtype=np.float32)
     assert pack_fused(m) is None
-    with pytest.raises(NotImplementedError, match="classic GStream"):
-        st.SparseMatrix(m, device="cpu")
+    x = np.random.default_rng(1).standard_normal(m.nr_cols)
+    jsm = JaxSparseMatrix(m, SpmvConfig(dtype=np.float32), interpret=True)
+    assert isinstance(jsm._device, JaxGStreamDevice)
+    sm = st.SparseMatrix(m, device="cpu")
+    assert isinstance(sm.device_module, st.GStreamDevice)
+    _same_y(m, None, x, jsm, sm)
     with pytest.raises(ValueError, match="not applicable"):
         st.SparseMatrix(m, backend="fused", device="cpu")
 
@@ -92,9 +122,25 @@ def test_wide_x_raises_where_jax_goes_classic():
     (dict(dtype=np.float32, block_cols=8192), "Queue 1 #4"),
 ])
 def test_unported_devices_raise(cfg, match):
+    """``match`` names the ROADMAP item: f64 still raises naming it; the
+    routes it ported (partitions, block_cols < 16384) take the JAX
+    package's device kinds and give its y."""
     m = random_csr(300, 2000, density=0.01, seed=1, dtype=np.float32)
-    with pytest.raises(NotImplementedError, match=match):
-        st.SparseMatrix(m, SpmvConfig(**cfg), device="cpu")
+    if match != "Queue 1 #4":
+        with pytest.raises(NotImplementedError, match=match):
+            st.SparseMatrix(m, SpmvConfig(**cfg), device="cpu")
+        return
+    x = np.random.default_rng(5).standard_normal(m.nr_cols)
+    jsm = JaxSparseMatrix(m, SpmvConfig(**cfg), interpret=True)
+    sm = st.SparseMatrix(m, SpmvConfig(**cfg), device="cpu")
+    if jsm._parts is not None:
+        kinds = [type(d).__name__ for d in jsm._parts]
+        assert [type(d).__name__ for d in sm.parts] == kinds
+    else:
+        assert isinstance(jsm._device, JaxGStreamDevice)
+        assert isinstance(sm.device_module, st.GStreamDevice)
+        assert np.array_equal(sm.packed.values, jsm.packed.values)
+    _same_y(m, cfg, x, jsm, sm)
 
 
 def test_fused_spmm_and_spgemm_raise():
@@ -107,9 +153,15 @@ def test_fused_spmm_and_spgemm_raise():
 
 
 def test_device_is_required():
-    m = random_csr(300, 2000, density=0.01, seed=1, dtype=np.float32)
-    with pytest.raises(TypeError):
-        st.SparseMatrix(m)
+    """The entry points run on the card unless the caller asks for the
+    CPU; without a card the default raises instead of falling back."""
+    import inspect
+    for fn in (st.SparseMatrix, st.pack, st.spmv):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        m = random_csr(300, 2000, density=0.01, seed=1, dtype=np.float32)
+        with pytest.raises(RuntimeError, match="cuda"):
+            st.SparseMatrix(m)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
@@ -150,11 +202,18 @@ def test_cli_random_cpu_passes():
     assert "Verification: PASS" in out.stdout
 
 
-@pytest.mark.parametrize("flag", [["--double"], ["--partitions", "2"]])
+@pytest.mark.parametrize("flag", [["--double"],
+                                  ["--double", "--partitions", "2"]])
 def test_cli_unported_flags_raise(flag):
     from sparsetpu_torch.cli import main
     with pytest.raises(NotImplementedError):
         main(["--random", "100x100x0.05", "--device", "cpu", *flag])
+
+
+def test_cli_partitions_cpu_passes():
+    from sparsetpu_torch.cli import main
+    assert main(["--random", "600x4000x0.01", "--device", "cpu",
+                 "--partitions", "2", "--repeats", "2"]) == 0
 
 
 def test_bench_cpu_reports_no_roofline():

@@ -1,8 +1,9 @@
-"""sparsetpu_torch: the jax-free host loader, device selection and build.
+"""sparsetpu_torch: its own host layer, device selection and build.
 
-The port imports torch and never jax: it loads the shared host layer of
-``sparsetpu`` (formats, pack, native) through a private alias package, so
-both packages pack byte-identical layouts.
+The port imports torch and never jax, and nothing of ``sparsetpu``: it
+keeps its own copy of the host layer (formats, pack, native), whose packs
+are byte-identical to the JAX package's, and builds its native library
+under ``build/sparsetpu_torch/``.
 """
 
 import os
@@ -36,10 +37,26 @@ assert sm.fused_device is not None
 y = (sm @ x).numpy()
 tol = _host.default_tolerance(np.float32, m.nr_nzeros / m.nr_rows)
 assert _host.verification(_host.spmv_gold(m, x), y, *tol) == 0
+# the classic device, in the bf16 value mode
+cfg = _host.SpmvConfig(dtype="bfloat16")
+sm = st.SparseMatrix(m, cfg, device="cpu")
+assert isinstance(sm.device_module, st.GStreamDevice)
+tol = _host.default_tolerance("bfloat16", m.nr_nzeros / m.nr_rows)
+assert _host.verification(_host.spmv_gold(m, x), (sm @ x).numpy(), *tol) == 0
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k == "jax" or k.startswith("jax."))]
 assert not loaded, loaded
 assert "sparsetpu" not in sys.modules
+assert "_sparsetpu_host" not in sys.modules
+import os
+jax_pkg = os.path.join(os.getcwd(), "sparsetpu") + os.sep
+inside = [k for k, v in sys.modules.items() if v is not None and
+          os.path.abspath(getattr(v, "__file__", None) or "").startswith(
+              jax_pkg)]
+assert not inside, inside
+from sparsetpu_torch.native import loader
+assert loader.LIB_PATH.startswith(
+    os.path.join(os.getcwd(), "build", "sparsetpu_torch") + os.sep)
 print("OK", _host.native_available())
 """
 
@@ -52,16 +69,28 @@ def test_port_packs_and_multiplies_with_jax_blocked():
 
 
 def test_port_sources_never_import_jax():
+    """No import of jax or sparsetpu, and no path built into the JAX
+    package's directory (a ``"sparsetpu"`` path component or a
+    ``sparsetpu/`` string other than a ``file.py:line`` citation of the
+    TPU kernel a port replaces), in the port's sources or the smoke
+    script."""
     pat = re.compile(r"^\s*(import|from)\s+(jax\b|sparsetpu(\.|\s|$))",
                      re.M)
+    path = re.compile(r"""["']([^"'\s]*/)?sparsetpu(/[^"'\s]*)?["']""")
+    cite = re.compile(r"""\.py:\d+["']$""")
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(os.path.join(REPO, "sparsetpu_torch")):
-        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) > 10
+        files += [os.path.join(root, n) for n in names
+                  if n.endswith((".py", "Makefile"))]
+    assert len(files) > 20
     for f in files:
         with open(f) as fh:
-            hit = pat.search(fh.read())
+            text = fh.read()
+        hit = pat.search(text)
         assert hit is None, f"{f}: {hit.group(0)!r}"
+        hits = [h.group(0) for h in path.finditer(text)
+                if not cite.search(h.group(0))]
+        assert not hits, f"{f}: {hits}"
 
 
 def test_host_pack_is_byte_identical_to_jax_package():
