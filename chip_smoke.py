@@ -27,9 +27,29 @@ Builds the CUDA kernels and the native packer from this checkout, then:
   per-tile base    the roadNet-CA stand-in packed with GL pinned
                    (``pack_gstream(G=8, GL=2)``) through ``GStreamDevice``.
 
-Each main path (the last four) is driven once through the entry points a
-user calls, with every kernel's launch count set to 0 just before and read
-just after; a kernel of that path that did not launch fails the run.  Then
+and Y = A @ X (SpMM) beside them:
+
+  regimes          every fused and classic regime above at k = 1, 3, 8,
+                   plus P = 8 and shuffled (legacy-final) packs and finals
+                   that spill: the fused SpMM, the k-plane forward and the
+                   k-plane finals against their plain versions, Y against
+                   ``spmm_gold``;
+  headline k = 8   the fused SpMM (``sm @ X``), against eight ``sm @ x``
+                   calls and cuSPARSE;
+  headline k = 72  (the smallest multiple of 8 the fused SpMM rejects on
+                   an H100): ``sm @ X`` on the lazily built classic
+                   device, the k-plane forward and flat final;
+  shuffled k = 8   ``spmm_gstream`` on the headline's
+                   ``pack_gstream(shuffle_lanes=True)``: the k-plane
+                   forward and legacy final;
+  web graph k = 4  the hybrid: fused SpMM on the light rows, the k-plane
+                   forward then per-plane F levels and legacy final on the
+                   heavy rows;
+  wide x k = 2     the k-plane forward, then per-plane flat finals.
+
+Each main path is driven once through the entry points a user calls, with
+every kernel's launch count set to 0 just before and read just after; a
+kernel of that path that did not launch fails the run.  Then
 each of its kernels is compared with its plain version on the path's own
 inputs and timed with CUDA events beside its bound (the bytes it must move
 at the card's HBM rate) and one PyTorch call computing the same function.
@@ -64,6 +84,15 @@ KERNELS = {
                            "sparsetpu/kernels/spmv_pallas.py:767"),
     "gstream_final_legacy": ("sparsetpu_torch/csrc/gstream_final.cu",
                              "sparsetpu/kernels/spmv_pallas.py:196"),
+    "fused_spmm": ("sparsetpu_torch/csrc/fused_spmm.cu",
+                   "sparsetpu/kernels/spmv_fused.py:144"),
+    "gstream_spmm": ("sparsetpu_torch/csrc/gstream_spmm.cu",
+                     "sparsetpu/kernels/spmm.py:28"),
+    "gstream_final_multi_flat": ("sparsetpu_torch/csrc/gstream_final_multi.cu",
+                                 "sparsetpu/kernels/spmm.py:156"),
+    "gstream_final_multi_legacy": (
+        "sparsetpu_torch/csrc/gstream_final_multi.cu",
+        "sparsetpu/kernels/spmm.py:117"),
 }
 
 
@@ -87,6 +116,28 @@ def _gold_errors(h, m, x, y, dtype=np.float32) -> int:
     if errors:
         raise RuntimeError(f"{errors} elements disagree with spmv_gold")
     return errors
+
+
+def _gold_errors_multi(s, m, X, Y, dtype=np.float32) -> int:
+    """Y (a tensor) against ``spmm_gold`` column by column at the SpMV
+    tolerance; raises on any error."""
+    h = s.h
+    if tuple(Y.shape) != (m.nr_rows, X.shape[1]) or \
+            not bool(Y.isfinite().all()):
+        raise RuntimeError(f"bad Y, shape {tuple(Y.shape)}")
+    G, Y = s.spmm_gold(m, X), Y.cpu().numpy()
+    atol, rtol = h.default_tolerance(dtype, m.nr_nzeros / max(m.nr_rows, 1))
+    errors = sum(h.verification(G[:, j], Y[:, j], diff_thres=atol,
+                                rel_thres=rtol) for j in range(X.shape[1]))
+    if errors:
+        raise RuntimeError(f"{errors} elements disagree with spmm_gold")
+    return errors
+
+
+def _X(n, k, seed):
+    """(n, k) f64 from a seed: the gold sums in f64 (scipy keeps the
+    operands' type), the devices take X as f32."""
+    return np.random.default_rng(seed).standard_normal((n, k))
 
 
 def _nbytes(*tensors) -> int:
@@ -153,10 +204,12 @@ class Smoke:
         import sparsetpu_torch as st
         from sparsetpu_torch import _host
         from sparsetpu_torch.bench.harness import call_ms, stream_ms
-        from sparsetpu_torch.kernels import spmv_fused, spmv_gstream
+        from sparsetpu_torch.formats.gold import spmm_gold
+        from sparsetpu_torch.kernels import spmm, spmv_fused, spmv_gstream
         from sparsetpu_torch.pack import final_levels
         self.torch, self.st, self.h = torch, st, _host
         self.fused, self.sg, self.fl = spmv_fused, spmv_gstream, final_levels
+        self.sp, self.spmm_gold = spmm, spmm_gold
         self._call_ms, self._stream_ms = call_ms, stream_ms
         self.dev = torch.device(device)
         self.hbm = hbm
@@ -176,15 +229,23 @@ class Smoke:
         self.fused.fused_spmv.launches = 0
         self.sg.gstream_chunk_sums.launches.clear()
         self.sg.final_gather.launches.clear()
+        self.fused.fused_spmm.launches = 0
+        self.sp.gstream_chunk_sums_multi.launches = 0
+        self.sp.final_gather_multi.launches.clear()
 
     def _counts(self):
         f = self.sg.gstream_chunk_sums.launches
         w = self.sg.final_gather.launches
+        mw = self.sp.final_gather_multi.launches
         return {"fused_spmv": self.fused.fused_spmv.launches,
                 "gstream_spmv_window": f["window"],
                 "gstream_spmv_tile_base": f["tile_base"],
                 "gstream_final_flat": w["flat"],
-                "gstream_final_legacy": w["legacy"]}
+                "gstream_final_legacy": w["legacy"],
+                "fused_spmm": self.fused.fused_spmm.launches,
+                "gstream_spmm": self.sp.gstream_chunk_sums_multi.launches,
+                "gstream_final_multi_flat": mw["flat"],
+                "gstream_final_multi_legacy": mw["legacy"]}
 
     def kernels_of(self, d):
         """The kernels a device's ``spmv`` launches."""
@@ -192,6 +253,22 @@ class Smoke:
             return {"fused_spmv"}
         ks = {"gstream_spmv_tile_base" if d.stream.GL
               else "gstream_spmv_window"}
+        if len(d.flevels):
+            ks.add("gstream_spmv_window")
+        if d.final is not None:
+            ks |= {"gstream_final_flat" if lvl.v2 else "gstream_final_legacy"
+                   for lvl in getattr(d.final, "levels", [d.final])}
+        return ks
+
+    def spmm_kernels_of(self, d):
+        """The kernels a device's SpMM launches (``spmm`` or
+        ``spmm_gstream``)."""
+        if isinstance(d, self.fused.FusedDevice):
+            return {"fused_spmm"}
+        ks = {"gstream_spmm"}
+        if isinstance(d.final, self.sg.FinalDevice) and not len(d.flevels):
+            return ks | {"gstream_final_multi_flat" if d.final.v2
+                         else "gstream_final_multi_legacy"}
         if len(d.flevels):
             ks.add("gstream_spmv_window")
         if d.final is not None:
@@ -246,14 +323,29 @@ class Smoke:
         a = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
                                     shape).coalesce().to_sparse_csr()
         y = a @ x
-        _agree(y[:ref.numel()].view_as(ref), ref)
+        _agree(y[:ref.shape[0]].view_as(ref), ref)
         return self.call_ms(lambda: a @ x)
+
+    def _forward_incidence(self, fwd):
+        """(rows, cols, values, n_out) of the forward as one sparse matrix:
+        chunk-sum position by x column."""
+        torch, sg, d = self.torch, self.sg, self.dev
+        idx, ok = sg.forward_gather_index(fwd.meta16, fwd.step_window,
+                                          T=fwd.T, G=fwd.G, GL=fwd.GL,
+                                          tile_base=fwd.tile_base)
+        vals = fwd.values.view(idx.shape).float()
+        keep = ok & (vals != 0)
+        out = ((torch.arange(idx.shape[0], device=d).view(-1, 1, 1) * fwd.P
+                + torch.arange(8, device=d).view(1, -1, 1) // (8 // fwd.P))
+               * 128 + torch.arange(128, device=d).view(1, 1, -1))
+        return (out.expand_as(idx)[keep], idx[keep], vals[keep],
+                idx.shape[0] * fwd.P * 128)
 
     def forward(self, fwd, x2, tag, measure=True):
         """The forward kernel of one pack vs its plain version; measured
         (time, bound, library call) when ``measure``.  Returns the plain
         chunk sums."""
-        torch, sg = self.torch, self.sg
+        sg = self.sg
         ref = sg.gstream_chunk_sums_reference
         ck, cr = fwd(x2), fwd(x2, ref)
         self.sync()
@@ -264,23 +356,54 @@ class Smoke:
                 else "gstream_spmv_window")
         ms = self.call_ms(lambda: fwd(x2))
         plain_ms = self.call_ms(lambda: fwd(x2, ref), repeats=10)
-        idx, ok = sg.forward_gather_index(fwd.meta16, fwd.step_window,
-                                          T=fwd.T, G=fwd.G, GL=fwd.GL,
-                                          tile_base=fwd.tile_base)
-        vals = fwd.values.view(idx.shape).float()
-        keep = ok & (vals != 0)
-        d = self.dev
-        out = ((torch.arange(idx.shape[0], device=d).view(-1, 1, 1) * fwd.P
-                + torch.arange(8, device=d).view(1, -1, 1) // (8 // fwd.P))
-               * 128 + torch.arange(128, device=d).view(1, 1, -1))
-        lib_ms = self.library_spmv(
-            out.expand_as(idx)[keep], idx[keep], vals[keep],
-            (cr.numel(), x2.numel()), x2.reshape(-1), cr.reshape(-1))
+        rows, cols, vals, n_out = self._forward_incidence(fwd)
+        lib_ms = self.library_spmv(rows, cols, vals, (n_out, x2.numel()),
+                                   x2.reshape(-1), cr.reshape(-1))
         nb = _nbytes(fwd.values, fwd.meta16, fwd.step_window, fwd.tile_base,
                      x2, ck)
         self.record(name, tag, err, ms, plain_ms, nb,
                     2 * fwd.values.numel(), lib_ms)
         return cr
+
+    def forward_multi(self, fwd, X, tag, measure=True):
+        """The k-plane forward kernel vs its plain version (X row-major
+        (padded_cols, k)); measured when ``measure``.  Returns the plain
+        chunk sums (n_positions, k)."""
+        ref = self.sp.gstream_chunk_sums_multi_reference
+        ck, cr = fwd.forward_multi(X), fwd.forward_multi(X, ref)
+        self.sync()
+        err = _agree(ck, cr)
+        if not measure:
+            return cr
+        ms = self.call_ms(lambda: fwd.forward_multi(X))
+        plain_ms = self.call_ms(lambda: fwd.forward_multi(X, ref), repeats=10)
+        rows, cols, vals, n_out = self._forward_incidence(fwd)
+        lib_ms = self.library_spmv(rows, cols, vals, (n_out, X.shape[0]), X,
+                                   cr)
+        nb = _nbytes(fwd.values, fwd.meta16, fwd.step_window, fwd.tile_base,
+                     X, ck)
+        self.record("gstream_spmm", tag, err, ms, plain_ms, nb,
+                    2 * fwd.values.numel() * X.shape[1], lib_ms)
+        return cr
+
+    def _final_incidence(self, levels):
+        """(rows, cols, n_pos, n_out) of final levels as one 0/1 sparse
+        matrix: y row by position."""
+        torch, sg = self.torch, self.sg
+        rows, cols = [], []
+        for lvl in levels:
+            idx, ok = sg.final_gather_index(
+                lvl.step_meta, lvl.tile_bases, lvl.cells, lvl.route,
+                tps=lvl.tps, G=lvl.G, nw=lvl.nw, GS=lvl.GS, v2=lvl.v2)
+            o = lvl.step_meta[:, lvl.nw + 1].long().view(-1, 1, 1, 1)
+            t = torch.arange(lvl.tps, device=self.dev).view(1, -1, 1, 1)
+            lane = torch.arange(128, device=self.dev).view(1, 1, 1, -1)
+            out = ((o * lvl.tps + t) * 128 + lane).expand_as(idx)
+            rows.append(out[ok])
+            cols.append(idx[ok])
+        return (torch.cat(rows), torch.cat(cols),
+                max(lvl.x_pad_rows for lvl in levels) * 128,
+                max(lvl.nt_pad for lvl in levels) * 128)
 
     def final(self, final, vec, nr_rows, tag, measure=True):
         """A final level (all its flat levels, for a multi final) vs its
@@ -299,23 +422,10 @@ class Smoke:
         ms = self.call_ms(lambda: [lvl.grid(vec) for lvl in levels])
         plain_ms = self.call_ms(lambda: [lvl.grid(vec, ref)
                                          for lvl in levels], repeats=10)
-        rows, cols = [], []
-        for lvl in levels:
-            idx, ok = sg.final_gather_index(
-                lvl.step_meta, lvl.tile_bases, lvl.cells, lvl.route,
-                tps=lvl.tps, G=lvl.G, nw=lvl.nw, GS=lvl.GS, v2=lvl.v2)
-            o = lvl.step_meta[:, lvl.nw + 1].long().view(-1, 1, 1, 1)
-            t = torch.arange(lvl.tps, device=self.dev).view(1, -1, 1, 1)
-            lane = torch.arange(128, device=self.dev).view(1, 1, 1, -1)
-            out = ((o * lvl.tps + t) * 128 + lane).expand_as(idx)
-            rows.append(out[ok])
-            cols.append(idx[ok])
-        n_pos = max(lvl.x_pad_rows for lvl in levels) * 128
+        rows, cols, n_pos, n_out = self._final_incidence(levels)
         flat = vec.reshape(-1)
         flat = torch.nn.functional.pad(flat, (0, max(0, n_pos - flat.numel())))
-        n_out = max(lvl.nt_pad for lvl in levels) * 128
         total = sum(g.reshape(-1)[:nr_rows] for g in gr)
-        rows, cols = torch.cat(rows), torch.cat(cols)
         lib_ms = self.library_spmv(
             rows, cols, torch.ones(rows.numel(), device=self.dev),
             (n_out, n_pos), flat[:n_pos], total)
@@ -324,6 +434,41 @@ class Smoke:
                     lvl.cells, lvl.route) for lvl in levels)
         self.record(name, tag, err, ms, plain_ms, nb,
                     sum(lvl.cells.numel() for lvl in levels), lib_ms)
+
+    def final_multi(self, lvl, vec, tag, measure=True):
+        """The k-plane final kernel of one final level vs its plain version
+        on the k-plane position vector ``vec`` (n_positions, k)."""
+        torch = self.torch
+        ref = self.sp.final_gather_multi_reference
+        gk, gr = lvl.grid_multi(vec), lvl.grid_multi(vec, ref)
+        self.sync()
+        err = _agree(gk, gr)
+        if not measure:
+            return
+        name = ("gstream_final_multi_flat" if lvl.v2
+                else "gstream_final_multi_legacy")
+        ms = self.call_ms(lambda: lvl.grid_multi(vec))
+        plain_ms = self.call_ms(lambda: lvl.grid_multi(vec, ref), repeats=10)
+        rows, cols, n_pos, n_out = self._final_incidence([lvl])
+        k = vec.shape[1]
+        X = torch.nn.functional.pad(
+            vec, (0, 0, 0, max(0, n_pos - vec.shape[0])))[:n_pos]
+        lib_ms = self.library_spmv(
+            rows, cols, torch.ones(rows.numel(), device=self.dev),
+            (n_out, n_pos), X.contiguous(), gr)
+        nb = (n_pos + n_out) * k * 4 + _nbytes(
+            lvl.step_meta, lvl.tile_bases, lvl.inst_start, lvl.cells,
+            lvl.route)
+        self.record(name, tag, err, ms, plain_ms, nb, lvl.cells.numel() * k,
+                    lib_ms)
+
+    def gstream_multi(self, d, X, tag, measure=True):
+        """The k-plane kernels of one classic device's SpMM vs their plain
+        versions (the per-plane finishes run the SpMV kernels, which
+        ``gstream`` checks)."""
+        cr = self.forward_multi(d.stream, d.prepare_x_multi(X), tag, measure)
+        if isinstance(d.final, self.sg.FinalDevice) and not len(d.flevels):
+            self.final_multi(d.final, cr, tag, measure)
 
     def gstream(self, d, x, tag, measure=True):
         """Every kernel of one classic device vs its plain version."""
@@ -340,44 +485,83 @@ class Smoke:
         if d.final is not None:
             self.final(d.final, vec, d.meta.nr_rows, tag, measure)
 
-    def fused_kernel(self, dev, x2, tag, lib_ms):
-        """The fused kernel vs its plain version, timed in turns."""
+    def fused_kernel(self, dev, x, tag, lib_ms, multi=False):
+        """The fused SpMV (or, with ``multi``, SpMM on X row-major
+        (padded_cols, k)) kernel vs its plain version, timed in turns."""
         fused = self.fused
-        ref = fused.fused_spmv_reference
-        yk, yr = dev.blocks(x2), dev.blocks(x2, kernel=ref)
+        if multi:
+            name, blocks = "fused_spmm", dev.blocks_multi
+            ref, k = fused.fused_spmm_reference, x.shape[1]
+        else:
+            name, blocks = "fused_spmv", dev.blocks
+            ref, k = fused.fused_spmv_reference, 1
+        yk, yr = blocks(x), blocks(x, ref)
         self.sync()
         err = _agree(yk, yr)
         runs = {"kernel": [], "plain": []}
-        for name, fn in (("plain", lambda: dev.blocks(x2, kernel=ref)),
-                         ("kernel", lambda: dev.blocks(x2)),
-                         ("kernel", lambda: dev.blocks(x2)),
-                         ("plain", lambda: dev.blocks(x2, kernel=ref))):
-            runs[name].append((self.call_ms(fn),
-                               self._stream_ms(fn, self.dev)
-                               if self.dev.type == "cuda" else np.nan))
+        for which, fn in (("plain", lambda: blocks(x, ref)),
+                          ("kernel", lambda: blocks(x)),
+                          ("kernel", lambda: blocks(x)),
+                          ("plain", lambda: blocks(x, ref))):
+            runs[which].append((self.call_ms(fn),
+                                self._stream_ms(fn, self.dev)
+                                if self.dev.type == "cuda" else np.nan))
         ms = {k: float(np.mean([a for a, _ in v])) for k, v in runs.items()}
         back = {k: float(np.mean([b for _, b in v])) for k, v in runs.items()}
-        print(f"  fused_spmv [{tag}]: back to back kernel {back['kernel']:.4f}"
+        print(f"  {name} [{tag}]: back to back kernel {back['kernel']:.4f}"
               f" ms, plain {back['plain']:.4f} ms", flush=True)
-        nb = _nbytes(*(getattr(dev, n) for n, _ in fused._KERNEL_INPUTS),
-                     x2, yk)
-        self.record("fused_spmv", tag, err, ms["kernel"], ms["plain"], nb,
-                    2 * dev.values.numel(), lib_ms)
+        stream = _nbytes(*(getattr(dev, n) for n, _ in fused._KERNEL_INPUTS))
+        nb = stream + _nbytes(x, yk)
+        if multi:
+            p = dev.meta
+            plane = (p.T * p.planes + (0 if p.fin_direct else p.F1S)) * 512
+            passes = -(-k // min(k, fused.card_limits(self.dev)[1] // plane)) \
+                if self.dev.type == "cuda" else 1
+            design = (passes * stream + _nbytes(x, yk)) / (self.hbm * 1e6)
+            print(f"  fused_spmm [{tag}]: {passes} passes over the "
+                  f"{stream} B stream (plane groups of the opt-in shared "
+                  f"memory): this design's bound {design:.4f} ms, the "
+                  f"one-pass bound {nb / (self.hbm * 1e6):.4f} ms",
+                  flush=True)
+        self.record(name, tag, err, ms["kernel"], ms["plain"], nb,
+                    2 * dev.values.numel() * k, lib_ms)
+
+    def csr(self, m):
+        """The matrix as a torch CSR tensor on the device (cuSPARSE)."""
+        torch = self.torch
+        return torch.sparse_csr_tensor(
+            torch.from_numpy(m.row_ptr.astype(np.int64)),
+            torch.from_numpy(m.col_ind.astype(np.int64)),
+            torch.from_numpy(m.values), (m.nr_rows, m.nr_cols)).to(self.dev)
 
     def whole_call(self, sm, m, xt, tag):
         """``sm @ x`` a call beside one cuSPARSE CSR SpMV of the matrix;
         returns the library call's time."""
-        torch = self.torch
         ms = self.call_ms(lambda: sm @ xt, repeats=20)
-        a = torch.sparse_csr_tensor(
-            torch.from_numpy(m.row_ptr.astype(np.int64)),
-            torch.from_numpy(m.col_ind.astype(np.int64)),
-            torch.from_numpy(m.values), (m.nr_rows, m.nr_cols)).to(self.dev)
+        a = self.csr(m)
         lib_ms = self.call_ms(lambda: a @ xt, repeats=20)
         print(f"  {tag}: SparseMatrix @ x {ms:.4f} ms a call "
               f"({m.nr_nzeros / ms / 1e6:.2f} Gnnz/s) | torch.sparse_csr "
               f"@ x (cuSPARSE) {lib_ms:.4f} ms "
               f"({m.nr_nzeros / lib_ms / 1e6:.2f} Gnnz/s)", flush=True)
+        return lib_ms
+
+    def whole_call_multi(self, sm, m, Xt, tag):
+        """``sm @ X`` a call beside k back-to-back ``sm @ x`` calls (one a
+        column) and one cuSPARSE CSR SpMM; returns the library call's
+        time.  Gnnz/s counts nnz * k."""
+        k = Xt.shape[1]
+        cols = [Xt[:, j].contiguous() for j in range(k)]
+        a = self.csr(m)
+        ms = self.call_ms(lambda: sm @ Xt, repeats=20)
+        per_col = self.call_ms(lambda: [sm @ c for c in cols], repeats=10)
+        lib_ms = self.call_ms(lambda: a @ Xt, repeats=20)
+        work = m.nr_nzeros * k / 1e6
+        print(f"  {tag}: SparseMatrix @ X (k={k}) {ms:.4f} ms a call "
+              f"({work / ms:.2f} Gnnz/s) | {k} x SparseMatrix @ x "
+              f"{per_col:.4f} ms ({work / per_col:.2f} Gnnz/s) | "
+              f"torch.sparse_csr @ X (cuSPARSE) {lib_ms:.4f} ms "
+              f"({work / lib_ms:.2f} Gnnz/s)", flush=True)
         return lib_ms
 
     def profile(self, tag, fn, calls=10):
@@ -483,6 +667,17 @@ def fused_regimes(s):
               f"spills={p.spill_row.size} | kernel vs plain max abs "
               f"{err:.3e} rel {rel:.3e} | vs spmv_gold 0 errors",
               flush=True)
+        errs = []
+        for k in (1, 3, 8):
+            X = _X(m.nr_cols, k, seed=k)
+            Xp = dev.prepare_x_multi(X)
+            yk = dev.blocks_multi(Xp)
+            yr = dev.blocks_multi(Xp, fused.fused_spmm_reference)
+            s.sync()
+            errs.append(_agree(yk, yr))
+            _gold_errors_multi(s, m, X, dev.spmm(Xp, x_is_packed=True))
+        print(f"fused regime {tag}, SpMM k=1,3,8: fused_spmm vs plain max "
+              f"abs {max(errs):.3e} | vs spmm_gold 0 errors", flush=True)
 
 
 def classic_regimes(s):
@@ -527,6 +722,12 @@ def classic_regimes(s):
          and final_kinds(d) == {"_FinalLevel"}),
         ("bf16 values", rc(1000, 2000, 0.02, seed=71, dtype=f32), {},
          torch.bfloat16, lambda d: d.dtype == torch.bfloat16),
+        ("window G=4 Q=1 (P=8)", rc(5000, 5000, 0.01, seed=0, dtype=f32),
+         dict(G=4, Q=1), None, lambda d: d.meta.planes == 8),
+        ("legacy final, no F levels (shuffled lanes)",
+         rc(1200, 5000, 0.004, seed=12, dtype=f32),
+         dict(shuffle_lanes=True), None,
+         lambda d: final_kinds(d) == {"_FinalLevel"} and not len(d.flevels)),
     ]
     for tag, m, kw, vdt, regime in cases:
         d = sg.GStreamDevice(h.pack_gstream(m, **kw), s.dev, vdt)
@@ -536,9 +737,39 @@ def classic_regimes(s):
         x = np.random.default_rng(9).standard_normal(m.nr_cols)
         s.gstream(d, x, tag, measure=False)
         y = d.spmv(x).cpu().numpy()
-        _gold_errors(h, m, x, y, "bfloat16" if vdt is not None else f32)
+        dt = "bfloat16" if vdt is not None else f32
+        _gold_errors(h, m, x, y, dt)
         print(f"classic regime {tag}: {s.describe(d)} | kernels agree with "
               f"their plain versions | vs spmv_gold 0 errors", flush=True)
+        for k in (1, 3, 8):
+            X = _X(m.nr_cols, k, seed=k)
+            s.gstream_multi(d, X, tag, measure=False)
+            _gold_errors_multi(s, m, X, s.sp.spmm_gstream(d, X), dt)
+        print(f"classic regime {tag}, SpMM k=1,3,8: kernels "
+              f"{sorted(s.spmm_kernels_of(d))} agree with their plain "
+              f"versions | vs spmm_gold 0 errors", flush=True)
+
+    # k-plane finals that spill, on random position planes:
+    # against their plain versions and the per-plane final kernel
+    for kind, m in (("flat", rc(3000, 20_000, 0.002, seed=7, dtype=f32)),
+                    ("legacy", rc(5000, 5000, 0.01, seed=12, dtype=f32))):
+        p = h.pack_gstream(m, G=4, Q=2)
+        cr = p.chunk_row.reshape(-1).astype(np.int64)
+        fin = (fl._FinalLevelV2.build(cr, p.nr_rows, p.sections, p.planes)
+               if kind == "flat" else fl._FinalLevel.build(cr, p.nr_rows))
+        if fin is None or not fin.spill_pos.size:
+            raise RuntimeError(f"{kind} final: expected spills")
+        lvl = sg.final_device(fin, p.nr_rows, cr.size, s.dev)
+        for k in (1, 3, 8):
+            vec = torch.as_tensor(_X(cr.size, k, seed=k),
+                                  dtype=torch.float32, device=s.dev)
+            s.final_multi(lvl, vec, f"{kind} final with spills", False)
+            Y = lvl.apply_multi(vec)
+            for j in range(k):
+                _agree(Y[:, j], lvl.apply(vec[:, j].contiguous()))
+        print(f"classic regime {kind} final with {fin.spill_pos.size} "
+              f"spills, k=1,3,8: k-plane final vs plain and vs the "
+              f"per-plane final agree", flush=True)
 
     # no final can be built: the segment-sum route (its build is stubbed to
     # fail for this one device, as a pathological placement makes it)
@@ -555,8 +786,11 @@ def classic_regimes(s):
     x = np.random.default_rng(9).standard_normal(m.nr_cols)
     s.gstream(d, x, "segment-sum", measure=False)
     _gold_errors(h, m, x, d.spmv(x).cpu().numpy())
+    X = _X(m.nr_cols, 3, seed=3)
+    s.gstream_multi(d, X, "segment-sum", measure=False)
+    _gold_errors_multi(s, m, X, s.sp.spmm_gstream(d, X))
     print(f"classic regime segment-sum route: {s.describe(d)} | vs "
-          f"spmv_gold 0 errors", flush=True)
+          f"spmv_gold and (k=3) spmm_gold 0 errors", flush=True)
 
 
 def main_path(s, tag, make, run_devices, t0):
@@ -582,6 +816,20 @@ def main_path(s, tag, make, run_devices, t0):
     for d in devices:
         print(f"  device: {s.describe(d)}", flush=True)
     return m, x, xt, sm, devices
+
+
+def spmm_path(s, tag, m, fn, devices, k):
+    """Drive ``fn(X)`` (Y = A @ X through a user's entry point) once as a
+    main path with k columns, the launch counts of ``devices``' SpMM
+    kernels read around it, and check Y against ``spmm_gold``."""
+    X = _X(m.nr_cols, k, seed=k)
+    Xt = s.torch.as_tensor(X, dtype=s.torch.float32, device=s.dev)
+    expected = set().union(*(s.spmm_kernels_of(d) for d in devices))
+    Y = s.drive(tag, lambda: fn(Xt), expected)
+    _gold_errors_multi(s, m, X, Y)
+    print(f"{tag}: Y {tuple(Y.shape)}, 0 errors vs spmm_gold (column by "
+          f"column)", flush=True)
+    return Xt
 
 
 def run(device, hbm: float, small: bool = False):
@@ -614,6 +862,58 @@ def run(device, hbm: float, small: bool = False):
     s.fused_kernel(sm.fused_device, sm.prepare_x(x), "headline", lib_ms)
     print(f"phase headline: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    # ---- headline SpMM, k = 8: the fused SpMM kernel
+    t0 = time.perf_counter()
+    tag = "headline SpMM k=8"
+    Xt = spmm_path(s, tag, m, lambda X: sm @ X, [sm.fused_device], 8)
+    lib_ms = s.whole_call_multi(sm, m, Xt, tag)
+    s.profile(tag, lambda: sm @ Xt)
+    s.fused_kernel(sm.fused_device, sm.fused_device.prepare_x_multi(Xt), tag,
+                   lib_ms, multi=True)
+    print(f"phase headline SpMM: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # ---- past the fused SpMM's limit: the classic device of the source CSR
+    t0 = time.perf_counter()
+    k = 8
+    while sm.fused_device.spmm_applicable(k):
+        k += 8
+    cd = sm._classic_device()
+    s.sync()
+    print(f"headline: the fused SpMM takes k <= {k - 8} on this device, so "
+          f"k={k} takes the classic device, packed and uploaded in "
+          f"{time.perf_counter() - t0:.1f} s: {s.describe(cd)}", flush=True)
+    if not (isinstance(cd.final, sg.FinalDevice) and cd.final.v2
+            and not len(cd.flevels)):
+        raise RuntimeError("headline classic: expected a flat final with no "
+                           "F levels")
+    tag = f"headline SpMM k={k} (classic device)"
+    Xt = spmm_path(s, tag, m, lambda X: sm @ X, [cd], k)
+    s.whole_call_multi(sm, m, Xt, tag)
+    s.profile(tag, lambda: sm @ Xt)
+    s.gstream_multi(cd, Xt, tag)
+    print(f"phase headline classic SpMM: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # ---- the headline's shuffled pack: the k-plane legacy final
+    t0 = time.perf_counter()
+    shuf = st.GStreamDevice(h.pack_gstream(m, shuffle_lanes=True), s.dev)
+    print(f"headline shuffled: {s.describe(shuf)}", flush=True)
+    if not (isinstance(shuf.final, sg.FinalDevice) and not shuf.final.v2
+            and not len(shuf.flevels)):
+        raise RuntimeError("headline shuffled: expected a legacy final with "
+                           "no F levels")
+    tag = "headline shuffled SpMM k=8"
+    Xt = spmm_path(s, tag, m, lambda X: st.spmm_gstream(shuf, X), [shuf], 8)
+    print(f"  {tag}: spmm_gstream "
+          f"{s.call_ms(lambda: st.spmm_gstream(shuf, Xt), repeats=20):.4f} "
+          f"ms a call", flush=True)
+    s.profile(tag, lambda: st.spmm_gstream(shuf, Xt))
+    s.gstream_multi(shuf, Xt, tag)
+    print(f"phase headline shuffled SpMM: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    del cd, shuf, Xt
+
     # ---- wide x: roadNet-CA's shape, wholly classic
     t0 = time.perf_counter()
 
@@ -630,6 +930,11 @@ def run(device, hbm: float, small: bool = False):
     s.whole_call(sm, m, xt, "wide x (roadNet-CA)")
     s.profile("wide x (roadNet-CA)", lambda: sm @ xt)
     s.gstream(sm.device_module, xt, "wide x (roadNet-CA)")
+    tag = "wide x SpMM k=2 (roadNet-CA)"
+    Xt = spmm_path(s, tag, m, lambda X: sm @ X, [sm.device_module], 2)
+    s.whole_call_multi(sm, m, Xt, tag)
+    s.profile(tag, lambda: sm @ Xt)
+    s.gstream_multi(sm.device_module, Xt, tag, measure=False)
     print(f"phase wide x: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- per-tile base: the same matrix with GL pinned
@@ -674,6 +979,18 @@ def run(device, hbm: float, small: bool = False):
     print(f"  fused_spmv [web graph, light rows]: kernel vs plain max abs "
           f"{_agree(yk, yr):.3e}", flush=True)
     s.gstream(sm.heavy_device, xt, "web graph (webbase-1M), heavy rows")
+    tag = "web graph SpMM k=4 (webbase-1M)"
+    Xt = spmm_path(s, tag, m, lambda X: sm @ X,
+                   [sm.fused_device, sm.heavy_device], 4)
+    s.whole_call_multi(sm, m, Xt, tag)
+    s.profile(tag, lambda: sm @ Xt)
+    lX = light.prepare_x_multi(Xt)
+    yk, yr = light.blocks_multi(lX), light.blocks_multi(
+        lX, fused.fused_spmm_reference)
+    s.sync()
+    print(f"  fused_spmm [web graph, light rows]: kernel vs plain max abs "
+          f"{_agree(yk, yr):.3e}", flush=True)
+    s.gstream_multi(sm.heavy_device, Xt, tag + ", heavy rows", measure=False)
     print(f"phase web graph: {time.perf_counter() - t0:.1f} s", flush=True)
 
     missing = sorted(set(KERNELS) - set(s.records))

@@ -1,4 +1,5 @@
-"""sparsetpu_torch: the sparsetpu SpMV on PyTorch and CUDA (NVIDIA Hopper).
+"""sparsetpu_torch: the sparsetpu SpMV and SpMM on PyTorch and CUDA (NVIDIA
+Hopper).
 
 A port of the JAX/Pallas package ``sparsetpu`` beside it, which stays the
 reference.  The host layer (CSR containers, golds, the pack engines and
@@ -12,7 +13,7 @@ Layer map:
   pack/       fused and GStream packs, row balance, final-level builders
   native/     C++ loader, packer and final builder (ctypes)
   _host       the host layer in one namespace
-  kernels/    kernel wrappers + plain versions: fused, GStream, COO
+  kernels/    kernel wrappers + plain versions: fused, GStream, SpMM, COO
   api/        pack()/spmv()/SparseMatrix
   bench/      the main.cpp measurement protocol, CUDA-event timing
   utils/      configuration, device selection, card facts
@@ -23,13 +24,16 @@ __version__ = "0.1.0"
 from ._host import (CSRMatrix, SpmvConfig, default_tolerance, read_matrix,
                     spmv_gold, verification)
 from .api.api import SparseMatrix, pack, spmv
-from .kernels.spmv_fused import FusedDevice, fused_spmv
+from .kernels.spmm import (final_gather_multi, gstream_chunk_sums_multi,
+                           spmm_gstream)
+from .kernels.spmv_fused import FusedDevice, fused_spmm, fused_spmv
 from .kernels.spmv_gstream import (GStreamDevice, final_gather,
                                    gstream_chunk_sums)
 
 __all__ = [
-    "SparseMatrix", "pack", "spmv", "FusedDevice", "fused_spmv",
-    "GStreamDevice", "final_gather", "gstream_chunk_sums",
+    "SparseMatrix", "pack", "spmv", "FusedDevice", "fused_spmm",
+    "fused_spmv", "GStreamDevice", "final_gather", "final_gather_multi",
+    "gstream_chunk_sums", "gstream_chunk_sums_multi", "spmm_gstream",
     "CSRMatrix", "SpmvConfig", "default_tolerance", "read_matrix",
     "spmv_gold", "verification",
 ]

@@ -13,9 +13,12 @@ default; pass ``device="cpu"`` for the plain PyTorch versions) and answers
   partitions ``num_partitions > 1`` nnz-balanced row ranges, each fused or
              classic.
 
-The f64 devices and SpMM are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item.  Nothing falls back to COO
-or to the CPU.
+``A @ X`` with X of shape (nr_cols, k) routes as the JAX package's
+``spmm`` (``api/api.py:255-291``): the fused SpMM kernel where the device
+takes k planes, the classic k-plane SpMM otherwise (on a classic device
+built from the kept source CSR when the matrix is fused).  The f64 devices
+and SpGEMM are not ported yet and raise ``NotImplementedError`` naming the
+ROADMAP item.  Nothing falls back to COO or to the CPU.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import _host
+from ..kernels.spmm import spmm_gstream
 from ..kernels.spmv_coo import spmm_coo, spmv_coo
 from ..kernels.spmv_fused import FusedDevice
 from ..kernels.spmv_gstream import GStreamDevice
@@ -72,6 +76,8 @@ class SparseMatrix:
         self._parts = None         # row partitions (num_partitions > 1)
         self._heavy_dev = None     # the hybrid's heavy-row device
         self._heavy_rows = None
+        self._source = None        # the CSR, for a lazy classic device
+        self._classic = None
         if backend == "coo":
             coo = matrix.to_coo()
 
@@ -87,6 +93,7 @@ class SparseMatrix:
                 "f64 (DOUBLE=1) runs on the two-float devices, not ported "
                 "yet: ROADMAP Queue 1 #6")
         vdt = torch.bfloat16 if self.config.is_bf16 else None
+        self._source = matrix
         if self.config.num_partitions > 1:
             self._build_partitions(matrix, vdt)
             return
@@ -207,13 +214,39 @@ class SparseMatrix:
         return self.spmv_packed_x(self.prepare_x(x))
 
     def spmm(self, x) -> torch.Tensor:
-        """Y = A @ X for X of shape (nr_cols, k)."""
-        if self.backend != "coo":
-            raise NotImplementedError("SpMM on the packed devices is not "
-                                      "ported yet: ROADMAP Queue 1 #5")
-        x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        return spmm_coo(self._row_ind, self._col_ind, self._values, x,
-                        self.nr_rows)
+        """Y = A @ X (nr_rows, k) for X of shape (nr_cols, k)."""
+        if self.backend == "coo":
+            x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
+            return spmm_coo(self._row_ind, self._col_ind, self._values, x,
+                            self.nr_rows)
+        X = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        if X.dim() != 2 or X.shape[0] != self.nr_cols:
+            raise ValueError(f"X has shape {tuple(X.shape)}, expected "
+                             f"({self.nr_cols}, k)")
+        k = X.shape[1]
+        if self._parts is not None:
+            # row segments concatenate in order (partitions are contiguous)
+            return torch.cat([_part_spmm(d, X) for d in self._parts])
+        if isinstance(self._device, FusedDevice) and \
+                self._device.spmm_applicable(k):
+            Y = self._device.spmm(X)
+            if self._heavy_dev is not None:
+                # in place: Y is this call's own output
+                Y.index_add_(0, self._heavy_rows,
+                             spmm_gstream(self._heavy_dev, X))
+            return Y
+        return spmm_gstream(self._classic_device(), X)
+
+    def _classic_device(self) -> GStreamDevice:
+        """The classic device: the one that answers ``@``, or for a fused
+        matrix one packed lazily from the kept source CSR (SpMM past the
+        fused kernel's limits)."""
+        if not isinstance(self._device, FusedDevice):
+            return self._device
+        if self._classic is None:
+            self._classic = GStreamDevice(
+                _pack_classic(self._source, self.config), self.device)
+        return self._classic
 
     def __matmul__(self, x):
         if isinstance(x, SparseMatrix) or hasattr(x, "row_ptr"):
@@ -241,6 +274,18 @@ class SparseMatrix:
             return self.nr_nzeros / max(
                 sum(d.meta.n_slots for d in self._parts), 1)
         return 1.0 if self._packed is None else self._packed.fill_factor
+
+
+def _part_spmm(d, X: torch.Tensor) -> torch.Tensor:
+    """One row partition's Y, as the JAX package's ``part_spmm``
+    (``api/api.py:271-277``): the fused SpMM where it takes k planes, else
+    one fused SpMV a column; ``spmm_gstream`` on a classic partition."""
+    if isinstance(d, FusedDevice):
+        if d.spmm_applicable(X.shape[1]):
+            return d.spmm(X)
+        return torch.stack([d.spmv(X[:, i]) for i in range(X.shape[1])],
+                           dim=1)
+    return spmm_gstream(d, X)
 
 
 def _split_rows(matrix, heavy_rows: np.ndarray):

@@ -110,6 +110,14 @@ def library() -> _Library:
         + [p]
     lib.gstream_final_launch.restype = i
     lib.gstream_final_launch.argtypes = [i] + [p] * 7 + [ll] + [i] * 4 + [p]
+    lib.fused_spmm_launch.restype = i
+    lib.fused_spmm_launch.argtypes = [p] * 12 + [i] * 13 + [p]
+    lib.gstream_spmm_launch.restype = i
+    lib.gstream_spmm_launch.argtypes = [p, i] + [p] * 5 + [ll] + [i] * 5 \
+        + [p]
+    lib.gstream_final_multi_launch.restype = i
+    lib.gstream_final_multi_launch.argtypes = [i] + [p] * 7 + [ll] \
+        + [i] * 5 + [p]
     lib.sparsetpu_error_string.restype = ctypes.c_char_p
     lib.sparsetpu_error_string.argtypes = [i]
     _LIBRARY.lib, _LIBRARY.path = lib, path

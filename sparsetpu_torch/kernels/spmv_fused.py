@@ -1,12 +1,15 @@
-"""Fused resident-x SpMV on the card (counterpart of
-``sparsetpu/kernels/spmv_fused.py:337-421``).
+"""Fused resident-x SpMV and SpMM on the card (counterpart of
+``sparsetpu/kernels/spmv_fused.py:337-474``).
 
 ``FusedDevice`` holds the fused pack (``sparsetpu/pack/fused.py``, the very
 arrays the JAX ``FusedDevice`` uploads) as buffers and runs y = A @ x as one
 kernel (``csrc/fused_spmv.cu``), then reassembles y from the per-slab output
-blocks and adds the pack's spills.  ``fused_spmv`` is the kernel's wrapper;
-``fused_spmv_reference`` is the same function in plain PyTorch, used for
-tensors on the CPU and for comparisons on the card.
+blocks and adds the pack's spills; ``spmm`` does the same for Y = A @ X
+with one kernel for all k columns (``csrc/fused_spmm.cu``), X, the blocks
+and Y row-major.  ``fused_spmv`` and ``fused_spmm`` are the kernels'
+wrappers; ``fused_spmv_reference`` and ``fused_spmm_reference`` are the
+same functions in plain PyTorch, used for tensors on the CPU and for
+comparisons on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +27,9 @@ from ._build import check, library
 LANES = _host.LANES
 CHUNK = _host.CHUNK
 STRIPE = _host.STRIPE
+# the JAX package's SpMM budget (a TPU VMEM figure,
+# ``sparsetpu/kernels/spmv_fused.py:279``): the CPU routes by it
+SPMM_PLANE_BYTES_MAX = 12 << 20
 
 # (name, dtype) of each kernel input, in the C entry point's order
 _KERNEL_INPUTS = (
@@ -42,9 +48,10 @@ def _cell(c: torch.Tensor, groups: int) -> torch.Tensor:
 
 
 def _check_inputs(t: dict, x2: torch.Tensor, *, T, GLW, P, F1_max, F2_max,
-                  F1S) -> tuple:
-    """Dtype, device, contiguity and shape checks shared by the kernel and
-    its plain version; returns (n_steps, F1A, F2A)."""
+                  F1S, GX=None) -> tuple:
+    """Dtype, device, contiguity and shape checks shared by the kernels and
+    their plain versions; returns (n_steps, F1A, F2A).  With ``GX`` given,
+    x2 is the SpMM's X, (GX*8*128, k)."""
     dev = x2.device
     for name, dtype in _KERNEL_INPUTS + (("x2", torch.float32),):
         a = x2 if name == "x2" else t[name]
@@ -77,9 +84,63 @@ def _check_inputs(t: dict, x2: torch.Tensor, *, T, GLW, P, F1_max, F2_max,
         raise ValueError("fin2_group must be (n_steps, F2_max)")
     if tuple(t["step_slab"].shape) != (n_steps,):
         raise ValueError("step_slab must be (n_steps,)")
-    if x2.dim() != 2 or x2.shape[1] != LANES:
+    if GX is not None:
+        if x2.dim() != 2 or x2.shape[0] != GX * CHUNK * STRIPE or \
+                x2.shape[1] < 1:
+            raise ValueError(f"X must be ({GX * CHUNK * STRIPE}, k), got "
+                             f"{tuple(x2.shape)}")
+    elif x2.dim() != 2 or x2.shape[1] != LANES:
         raise ValueError("x2 must be (GX*8, 128)")
     return n_steps, alloc[0], alloc[1]
+
+
+def _named(*inputs) -> dict:
+    """The kernel inputs, in ``_KERNEL_INPUTS`` order, by name."""
+    return dict(zip((name for name, _ in _KERNEL_INPUTS), inputs))
+
+
+def _reference(t: dict, X: torch.Tensor, n_steps: int, F1A: int, F2A: int,
+               *, T, GLW, P, F1_max, F2_max, F1S, OBp, n_slabs,
+               fin_direct) -> torch.Tensor:
+    """The fused kernels' function in plain PyTorch, over all steps and
+    planes at once: gather, sum over Q, gather, ``index_add_``.  X is
+    row-major (cols, k); returns the slab blocks (n_slabs*OBp*128, k)."""
+    dev, k = X.device, X.shape[1]
+    SR = T * P
+    # forward: slot (s, l) reads X[(8*tile_base + cell(i1[s, j]))*128 + j]
+    i1 = t["meta_i1"].view(-1, CHUNK, LANES).long()
+    rt = t["meta_rt"].view(-1, CHUNK, LANES).long() & 127
+    c = torch.gather(i1, 2, rt)
+    xrow = CHUNK * t["tile_base"].reshape(-1, 1, 1).long() + _cell(c, GLW)
+    prod = t["values"].view(-1, CHUNK, LANES, 1) * X[xrow * LANES + rt]
+    scratch = prod.view(n_steps, SR, CHUNK // P, LANES, k).sum(2)
+
+    def finish(src, rows, stage, F, FA):
+        """(n_steps, F, 8, 128, k) cell values a finish stage gathers."""
+        i1 = t[f"{stage}_i1"].view(n_steps, FA, CHUNK, LANES)[:, :F].long()
+        rt = t[f"{stage}_rt"].view(n_steps, FA, CHUNK, LANES)[:, :F].long() \
+            & 127
+        c = torch.gather(i1, 3, rt)
+        idx = (_cell(c, rows // CHUNK) * LANES + rt).reshape(n_steps, -1, 1)
+        got = torch.gather(src.reshape(n_steps, rows * LANES, k), 1,
+                           idx.expand(-1, -1, k)).view(*c.shape, k)
+        return torch.where((c >= 0).unsqueeze(-1), got,
+                           torch.zeros((), device=dev))
+
+    if fin_direct:
+        src, rows = scratch, SR
+    else:
+        src = torch.zeros(n_steps, F1S, LANES, k, device=dev)
+        src[:, :F1_max] = finish(scratch, SR, "fin1", F1_max, F1A).sum(2)
+        rows = F1S
+    add = finish(src, rows, "fin2", F2_max, F2A)
+    sub = torch.arange(CHUNK, device=dev).view(1, 1, CHUNK, 1)
+    lane = torch.arange(LANES, device=dev).view(1, 1, 1, LANES)
+    dest = (t["step_slab"].long().view(-1, 1, 1, 1) * OBp * LANES
+            + (CHUNK * t["fin2_group"].long().view(n_steps, F2_max, 1, 1)
+               + sub) * LANES + lane)
+    out = torch.zeros(n_slabs * OBp * LANES, k, device=dev)
+    return out.index_add_(0, dest.reshape(-1), add.reshape(-1, k))
 
 
 def fused_spmv_reference(values, meta_i1, meta_rt, tile_base, fin1_i1,
@@ -90,48 +151,13 @@ def fused_spmv_reference(values, meta_i1, meta_rt, tile_base, fin1_i1,
     """Plain PyTorch version of the fused kernel, over all steps at once:
     gather, sum over Q, gather, ``index_add_``.  Returns the slab blocks,
     (n_slabs*OBp, 128) f32."""
-    t = dict(values=values, meta_i1=meta_i1, meta_rt=meta_rt,
-             tile_base=tile_base, fin1_i1=fin1_i1, fin1_rt=fin1_rt,
-             fin2_i1=fin2_i1, fin2_rt=fin2_rt, fin2_group=fin2_group,
-             step_slab=step_slab)
-    n_steps, F1A, F2A = _check_inputs(t, x2, T=T, GLW=GLW, P=P,
-                                      F1_max=F1_max, F2_max=F2_max, F1S=F1S)
-    dev = x2.device
-    SR = T * P
-    # forward: slot (s, l) reads x2[8*tile_base + cell(i1[s, j]), j]
-    i1 = meta_i1.view(-1, CHUNK, LANES).long()
-    rt = meta_rt.view(-1, CHUNK, LANES).long() & 127
-    c = torch.gather(i1, 2, rt)
-    xrow = CHUNK * tile_base.reshape(-1, 1, 1).long() + _cell(c, GLW)
-    prod = values.view(-1, CHUNK, LANES) * x2.reshape(-1)[xrow * LANES + rt]
-    scratch = prod.view(n_steps, SR, CHUNK // P, LANES).sum(2)
-
-    def finish(src, rows, f_i1, f_rt, F, FA):
-        """(n_steps, F, 8, 128) cell values a finish stage gathers."""
-        i1 = f_i1.view(n_steps, FA, CHUNK, LANES)[:, :F].long()
-        rt = f_rt.view(n_steps, FA, CHUNK, LANES)[:, :F].long() & 127
-        c = torch.gather(i1, 3, rt)
-        idx = _cell(c, rows // CHUNK) * LANES + rt
-        got = torch.gather(src.reshape(n_steps, rows * LANES), 1,
-                           idx.reshape(n_steps, -1)).view(c.shape)
-        return torch.where(c >= 0, got, torch.zeros((), device=dev))
-
-    if fin_direct:
-        src, rows = scratch, SR
-    else:
-        src = torch.zeros(n_steps, F1S, LANES, device=dev)
-        src[:, :F1_max] = finish(scratch, SR, fin1_i1, fin1_rt, F1_max,
-                                 F1A).sum(2)
-        rows = F1S
-    add = finish(src, rows, fin2_i1, fin2_rt, F2_max, F2A)
-    sub = torch.arange(CHUNK, device=dev).view(1, 1, CHUNK, 1)
-    lane = torch.arange(LANES, device=dev).view(1, 1, 1, LANES)
-    dest = (step_slab.long().view(-1, 1, 1, 1) * OBp * LANES
-            + (CHUNK * fin2_group.long().view(n_steps, F2_max, 1, 1) + sub)
-            * LANES + lane)
-    out = torch.zeros(n_slabs * OBp * LANES, device=dev)
-    out.index_add_(0, dest.reshape(-1), add.reshape(-1))
-    return out.view(n_slabs * OBp, LANES)
+    t = _named(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
+               fin2_i1, fin2_rt, fin2_group, step_slab)
+    kw = dict(T=T, GLW=GLW, P=P, F1_max=F1_max, F2_max=F2_max, F1S=F1S)
+    n_steps, F1A, F2A = _check_inputs(t, x2, **kw)
+    return _reference(t, x2.reshape(-1, 1), n_steps, F1A, F2A, OBp=OBp,
+                      n_slabs=n_slabs, fin_direct=fin_direct,
+                      **kw).view(n_slabs * OBp, LANES)
 
 
 def fused_spmv(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
@@ -151,10 +177,8 @@ def fused_spmv(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
             n_slabs=n_slabs, fin_direct=fin_direct)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_spmv: unsupported device {x2.device}")
-    t = dict(values=values, meta_i1=meta_i1, meta_rt=meta_rt,
-             tile_base=tile_base, fin1_i1=fin1_i1, fin1_rt=fin1_rt,
-             fin2_i1=fin2_i1, fin2_rt=fin2_rt, fin2_group=fin2_group,
-             step_slab=step_slab)
+    t = _named(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
+               fin2_i1, fin2_rt, fin2_group, step_slab)
     n_steps, F1A, F2A = _check_inputs(t, x2, T=T, GLW=GLW, P=P,
                                       F1_max=F1_max, F2_max=F2_max, F1S=F1S)
     lib = library().lib
@@ -173,6 +197,77 @@ def fused_spmv(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
 
 
 fused_spmv.launches = 0
+
+
+def card_limits(device: torch.device) -> tuple:
+    """(L2 cache bytes, shared memory bytes a block may opt in to) of a
+    CUDA device: the two limits of the fused SpMM kernel."""
+    props = torch.cuda.get_device_properties(device)
+    return props.L2_cache_size, props.shared_memory_per_block_optin
+
+
+def fused_spmm_reference(values, meta_i1, meta_rt, tile_base, fin1_i1,
+                         fin1_rt, fin2_i1, fin2_rt, fin2_group, step_slab,
+                         X, *, T: int, GLW: int, P: int, F1_max: int,
+                         F2_max: int, F1S: int, OBp: int, n_slabs: int,
+                         fin_direct: int, GX: int) -> torch.Tensor:
+    """Plain PyTorch version of the fused SpMM kernel, over all steps and
+    planes at once.  X is row-major (GX*8*128, k); returns the slab blocks
+    (n_slabs*OBp*128, k) f32."""
+    t = _named(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
+               fin2_i1, fin2_rt, fin2_group, step_slab)
+    kw = dict(T=T, GLW=GLW, P=P, F1_max=F1_max, F2_max=F2_max, F1S=F1S)
+    n_steps, F1A, F2A = _check_inputs(t, X, GX=GX, **kw)
+    return _reference(t, X, n_steps, F1A, F2A, OBp=OBp, n_slabs=n_slabs,
+                      fin_direct=fin_direct, **kw)
+
+
+def fused_spmm(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
+               fin2_i1, fin2_rt, fin2_group, step_slab, X, *, T: int,
+               GLW: int, P: int, F1_max: int, F2_max: int, F1S: int,
+               OBp: int, n_slabs: int, fin_direct: int,
+               GX: int) -> torch.Tensor:
+    """The fused SpMM kernel: slab blocks (n_slabs*OBp*128, k) f32 of
+    Y = A @ X, X row-major (GX*8*128, k).
+
+    On CUDA tensors it launches ``csrc/fused_spmm.cu`` on the current
+    stream (or raises), with as many planes a block as the card's opt-in
+    shared memory holds; on CPU tensors it runs ``fused_spmm_reference``.
+    ``fused_spmm.launches`` counts kernel launches."""
+    kw = dict(T=T, GLW=GLW, P=P, F1_max=F1_max, F2_max=F2_max, F1S=F1S)
+    if X.device.type == "cpu":
+        return fused_spmm_reference(
+            values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt, fin2_i1,
+            fin2_rt, fin2_group, step_slab, X, OBp=OBp, n_slabs=n_slabs,
+            fin_direct=fin_direct, GX=GX, **kw)
+    if X.device.type != "cuda":
+        raise ValueError(f"fused_spmm: unsupported device {X.device}")
+    t = _named(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
+               fin2_i1, fin2_rt, fin2_group, step_slab)
+    n_steps, F1A, F2A = _check_inputs(t, X, GX=GX, **kw)
+    k = X.shape[1]
+    plane = (T * P + (0 if fin_direct else F1S)) * LANES * 4
+    _, smem = card_limits(X.device)
+    if plane > smem:
+        raise ValueError(f"fused_spmm: one plane's scratch ({plane} B) "
+                         f"exceeds the {smem} B a block may use")
+    kg = min(k, smem // plane)
+    lib = library().lib
+    with torch.cuda.device(X.device):
+        out = torch.zeros(n_slabs * OBp * LANES, k, device=X.device)
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        rc = lib.fused_spmm_launch(
+            *(ctypes.c_void_p(t[name].data_ptr())
+              for name, _ in _KERNEL_INPUTS),
+            ctypes.c_void_p(X.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            n_steps, T, GLW, P, F1_max, F2_max, F1A, F2A, F1S, OBp,
+            fin_direct, k, kg, ctypes.c_void_p(stream))
+    check(lib, rc, "fused_spmm launch")
+    fused_spmm.launches += 1
+    return out
+
+
+fused_spmm.launches = 0
 
 
 def slabs_uniform(m) -> bool:
@@ -261,19 +356,70 @@ class FusedDevice(nn.Module):
             F2_max=m.F2_max, F1S=m.F1S, OBp=m.OBp, n_slabs=m.n_slabs,
             fin_direct=m.fin_direct)
 
-    def spmv(self, x, x_is_packed: bool = False) -> torch.Tensor:
-        x2 = x if x_is_packed else self.prepare_x(x)
+    def _rows(self, flat: torch.Tensor) -> torch.Tensor:
+        """y's rows of the flat slab blocks: one slice when the slabs are
+        uniform, else one slice a slab."""
         m = self.meta
-        flat = self.blocks(x2).view(-1)
         sb = m.slab_bounds
         if self.uniform_slabs:
-            y = flat[:int(sb[-1])]
-        else:
-            ob = m.OBp * LANES
-            y = torch.cat([flat[s * ob:s * ob + int(sb[s + 1] - sb[s])]
-                           for s in range(m.n_slabs)])
+            return flat[:int(sb[-1])]
+        ob = m.OBp * LANES
+        return torch.cat([flat[s * ob:s * ob + int(sb[s + 1] - sb[s])]
+                          for s in range(m.n_slabs)])
+
+    def spmv(self, x, x_is_packed: bool = False) -> torch.Tensor:
+        x2 = x if x_is_packed else self.prepare_x(x)
+        y = self._rows(self.blocks(x2).view(-1))
         if self.n_spills:
             # in place: y is this call's own output
             y.index_add_(0, self.spill_row,
                          self.spill_val * x2.reshape(-1)[self.spill_col])
         return y
+
+    # -- SpMM (counterpart of sparsetpu/kernels/spmv_fused.py:423-474) ------
+    def spmm_applicable(self, k: int) -> bool:
+        """True when the fused SpMM kernel takes k planes.  On a card: the k
+        X planes fit half the L2 (x stays resident, as in VMEM on the TPU)
+        and one plane's scratch fits a block's opt-in shared memory.  On the
+        CPU: the JAX package's VMEM budget, so routes agree with it."""
+        m = self.meta
+        if k < 1:
+            return False
+        if self.device.type == "cuda":
+            l2, smem = card_limits(self.device)
+            scratch = (m.T * m.planes + m.F1S) * LANES * 4
+            return k * m.padded_cols * 4 <= l2 // 2 and scratch <= smem
+        plane = m.padded_cols + (m.T * m.planes + m.F1S + m.OBp) * LANES
+        return k * plane * 4 <= SPMM_PLANE_BYTES_MAX
+
+    def prepare_x_multi(self, X) -> torch.Tensor:
+        """X (nr_cols, k) -> the resident layout: row-major
+        (padded_cols, k) f32, zero rows past nr_cols."""
+        X = torch.as_tensor(X, dtype=torch.float32, device=self.device)
+        if X.dim() != 2 or X.shape[0] != self.meta.nr_cols:
+            raise ValueError(f"X has shape {tuple(X.shape)}, expected "
+                             f"({self.meta.nr_cols}, k)")
+        pad = self.meta.GX * CHUNK * STRIPE - self.meta.nr_cols
+        return nn.functional.pad(X, (0, 0, 0, pad)).contiguous()
+
+    def blocks_multi(self, X: torch.Tensor, kernel=None) -> torch.Tensor:
+        """The slab blocks (n_slabs*OBp*128, k) for a prepared X, through
+        ``kernel`` (default the wrapper ``fused_spmm``;
+        ``fused_spmm_reference`` to compare)."""
+        m = self.meta
+        return (kernel or fused_spmm)(
+            *(getattr(self, name) for name, _ in _KERNEL_INPUTS), X,
+            T=m.T, GLW=m.GLW, P=m.planes, F1_max=m.F1_max,
+            F2_max=m.F2_max, F1S=m.F1S, OBp=m.OBp, n_slabs=m.n_slabs,
+            fin_direct=m.fin_direct, GX=m.GX)
+
+    def spmm(self, X, x_is_packed: bool = False) -> torch.Tensor:
+        """Y = A @ X, (nr_rows, k): one kernel for all k planes, y's rows
+        sliced out, then the spills' k-plane scatter-add."""
+        Xp = X if x_is_packed else self.prepare_x_multi(X)
+        Y = self._rows(self.blocks_multi(Xp))
+        if self.n_spills:
+            # in place: Y is this call's own output
+            Y.index_add_(0, self.spill_row,
+                         self.spill_val[:, None] * Xp[self.spill_col])
+        return Y

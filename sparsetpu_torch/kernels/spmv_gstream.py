@@ -59,9 +59,10 @@ def _require(t: torch.Tensor, name: str, dtypes, dev) -> None:
 # ---------------------------------------------------------------------------
 
 def _check_forward(values, meta, step_window, tile_base, x2, *, T, G, P,
-                   GL) -> int:
+                   GL, multi=False) -> int:
     """Dtype, device, contiguity and shape checks shared by the forward
-    kernel and its plain version; returns the tile count."""
+    kernels and their plain versions; returns the tile count.  ``multi``:
+    x2 is the SpMM's X, row-major (padded_cols, k)."""
     dev = x2.device
     _require(values, "values", (torch.float32, torch.bfloat16), dev)
     _require(meta, "meta", (torch.int16,), dev)
@@ -80,7 +81,11 @@ def _check_forward(values, meta, step_window, tile_base, x2, *, T, G, P,
         _require(tile_base, "tile_base", (torch.int32,), dev)
         if tuple(tile_base.shape) != (n_tiles,):
             raise ValueError("tile_base must be (n_tiles,)")
-    if x2.dim() != 2 or x2.shape[1] != LANES or x2.shape[0] % (CHUNK * G):
+    if multi:
+        if x2.dim() != 2 or x2.shape[0] % (CHUNK * G * STRIPE) or \
+                x2.shape[1] < 1:
+            raise ValueError("X must be (n_windows*8G*128, k)")
+    elif x2.dim() != 2 or x2.shape[1] != LANES or x2.shape[0] % (CHUNK * G):
         raise ValueError("x2 must be (n_windows*8G, 128)")
     return n_tiles
 
@@ -187,6 +192,18 @@ class ForwardStream(nn.Module):
             self.values, self.meta16, self.step_window, x2, T=self.T,
             G=self.G, P=self.P, GL=self.GL, tile_base=self.tile_base)
 
+    def forward_multi(self, X: torch.Tensor, kernel=None) -> torch.Tensor:
+        """The k planes' chunk sums, row-major (n_tiles*P*128, k), for X
+        row-major (padded_cols, k), through ``kernel`` (default the wrapper
+        ``spmm.gstream_chunk_sums_multi``)."""
+        from .spmm import gstream_chunk_sums_multi    # spmm imports this
+        if X.dim() != 2 or X.shape[0] != self.padded_cols:
+            raise ValueError(f"X has shape {tuple(X.shape)}, expected "
+                             f"({self.padded_cols}, k)")
+        return (kernel or gstream_chunk_sums_multi)(
+            self.values, self.meta16, self.step_window, X, T=self.T,
+            G=self.G, P=self.P, GL=self.GL, tile_base=self.tile_base)
+
 
 def _check_forward_pack(p: GStreamMatrix) -> None:
     """Host-side bounds the forward kernel relies on for in-buffer
@@ -212,9 +229,10 @@ def _check_forward_pack(p: GStreamMatrix) -> None:
 # ---------------------------------------------------------------------------
 
 def _check_final(step_meta, tile_bases, inst_start, x2, cells, route, *,
-                 tps, G, nw, GS, nt_pad, v2) -> int:
-    """Checks shared by the final kernel and its plain version; returns
-    the instance count."""
+                 tps, G, nw, GS, nt_pad, v2, multi=False) -> int:
+    """Checks shared by the final kernels and their plain versions; returns
+    the instance count.  ``multi``: x2 is the k position planes, row-major
+    (x_pad_rows*128, k)."""
     dev = x2.device
     for name, a, dt in (("step_meta", step_meta, torch.int32),
                         ("inst_start", inst_start, torch.int32),
@@ -238,7 +256,10 @@ def _check_final(step_meta, tile_bases, inst_start, x2, cells, route, *,
         _require(tile_bases, "tile_bases", (torch.int32,), dev)
         if tuple(tile_bases.shape) != (n_steps, tps * nw) or GS < G:
             raise ValueError("tile_bases must be (n_steps, tps * nwin)")
-    if x2.dim() != 2 or x2.shape[1] != LANES:
+    if multi:
+        if x2.dim() != 2 or x2.shape[0] % STRIPE or x2.shape[1] < 1:
+            raise ValueError("X must be (x_pad_rows*128, k)")
+    elif x2.dim() != 2 or x2.shape[1] != LANES:
         raise ValueError("x2 must be (x_pad_rows, 128)")
     return n_steps
 
@@ -378,6 +399,29 @@ class FinalDevice(nn.Module):
             y.index_add_(0, self.spill_row, vec.reshape(-1)[self.spill_pos])
         return y
 
+    def grid_multi(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
+        """The k planes' grid, row-major (nt_pad*128, k), from the k-plane
+        position vector ``vec`` (n_positions, k), padded as ``grid`` pads,
+        through ``kernel`` (default the wrapper
+        ``spmm.final_gather_multi``)."""
+        from .spmm import final_gather_multi          # spmm imports this
+        need = self.x_pad_rows * STRIPE
+        if vec.shape[0] < need:
+            vec = nn.functional.pad(vec, (0, 0, 0, need - vec.shape[0]))
+        return (kernel or final_gather_multi)(
+            self.step_meta, self.tile_bases, self.inst_start,
+            vec[:need].contiguous(), self.cells, self.route, tps=self.tps,
+            G=self.G, nw=self.nw, GS=self.GS, nt_pad=self.nt_pad, v2=self.v2)
+
+    def apply_multi(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
+        """Y (nr_rows, k) from the k-plane position vector (n_positions,
+        k): the multi-plane final, then the spills' k-plane adds."""
+        Y = self.grid_multi(vec, kernel)[:self.nr_rows]
+        if self.n_spills:
+            # in place: Y is a view of this call's own grid
+            Y.index_add_(0, self.spill_row, vec[self.spill_pos])
+        return Y
+
 
 def _check_final_level(final, G: int, nw: int, GS: int, v2: bool):
     """Host-side bounds the final kernel relies on; returns the instance
@@ -500,6 +544,17 @@ class GStreamDevice(nn.Module):
                              f"({self.meta.nr_cols},)")
         pad = self.meta.padded_cols - self.meta.nr_cols
         return nn.functional.pad(x, (0, pad)).view(-1, STRIPE)
+
+    def prepare_x_multi(self, X) -> torch.Tensor:
+        """X (nr_cols, k) -> row-major (padded_cols, k) f32, zero rows past
+        nr_cols (f32 in the bf16 value mode too)."""
+        X = torch.as_tensor(X, dtype=torch.float32, device=self.device)
+        if X.dim() != 2 or X.shape[0] != self.meta.nr_cols or \
+                X.shape[1] < 1:
+            raise ValueError(f"X has shape {tuple(X.shape)}, expected "
+                             f"({self.meta.nr_cols}, k)")
+        pad = self.meta.padded_cols - self.meta.nr_cols
+        return nn.functional.pad(X, (0, 0, 0, pad)).contiguous()
 
     def spmv(self, x, x_is_packed: bool = False) -> torch.Tensor:
         x2 = x if x_is_packed else self.prepare_x(x)

@@ -5,8 +5,8 @@ Every f32 route of ``sparsetpu.SparseMatrix`` is ported: the fused layout,
 the heavy-row hybrid, the classic GStream device (wide x, ``block_cols <
 16384``, bf16 values) and row partitions; each case takes the same device
 kind as the JAX package and gives the same y (rtol 1e-5, atol 1e-5 *
-max(1, max|y|): the same f32 terms summed in another order).  f64 still
-raises ``NotImplementedError``.
+max(1, max|y|): the same f32 terms summed in another order), and ``A @ X``
+its Y.  f64 and SpGEMM still raise ``NotImplementedError``.
 """
 
 import os
@@ -144,12 +144,34 @@ def test_unported_devices_raise(cfg, match):
 
 
 def test_fused_spmm_and_spgemm_raise():
+    """(The name dates from before SpMM was ported.)  ``sm @ X`` for a 2-D
+    X is the fused SpMM and passes the gold; SpGEMM still raises naming
+    the ROADMAP item."""
     m = random_csr(300, 2000, density=0.01, seed=1, dtype=np.float32)
     sm = st.SparseMatrix(m, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #5"):
-        sm @ np.ones((m.nr_cols, 2))
+    X = np.random.default_rng(2).standard_normal((m.nr_cols, 2))
+    Y = (sm @ X).numpy()
+    assert Y.shape == (m.nr_rows, 2) and Y.dtype == np.float32
+    for j in range(2):
+        _gold_ok(m, X[:, j], Y[:, j])
     with pytest.raises(NotImplementedError, match="Queue 1 #8"):
         sm @ m
+
+
+def test_fused_spmm_matches_jax():
+    """``A @ X`` on the fused route gives the JAX package's Y; a 1-D x
+    keeps the SpMV path."""
+    m = random_csr(300, 2000, density=0.01, seed=1, dtype=np.float32)
+    X = np.random.default_rng(3).standard_normal((m.nr_cols, 2))
+    jsm = JaxSparseMatrix(m, SpmvConfig(dtype=np.float32), interpret=True)
+    sm = st.SparseMatrix(m, device="cpu")
+    assert sm.fused_device.spmm_applicable(2)
+    Y = (sm @ X).numpy()
+    y_jax = np.asarray(jsm @ X)
+    atol = 1e-5 * max(1.0, float(np.abs(y_jax).max()))
+    np.testing.assert_allclose(Y, y_jax, rtol=1e-5, atol=atol)
+    np.testing.assert_allclose(Y[:, 0], (sm @ X[:, 0]).numpy(), rtol=1e-5,
+                               atol=atol)
 
 
 def test_device_is_required():

@@ -43,6 +43,17 @@ sm = st.SparseMatrix(m, cfg, device="cpu")
 assert isinstance(sm.device_module, st.GStreamDevice)
 tol = _host.default_tolerance("bfloat16", m.nr_nzeros / m.nr_rows)
 assert _host.verification(_host.spmv_gold(m, x), (sm @ x).numpy(), *tol) == 0
+# SpMM: the fused kernel's plain version and the classic k-plane SpMM
+from sparsetpu_torch.kernels import spmm
+from sparsetpu_torch.formats.gold import spmm_gold
+X = np.random.default_rng(2).standard_normal((m.nr_cols, 3))
+G = spmm_gold(m, X)
+tol = _host.default_tolerance(np.float32, m.nr_nzeros / m.nr_rows)
+for Y in (st.SparseMatrix(m, device="cpu") @ X,
+          spmm.spmm_gstream(st.GStreamDevice(_host.pack_gstream(m), "cpu"),
+                            X)):
+    for j in range(3):
+        assert _host.verification(G[:, j], Y[:, j].numpy(), *tol) == 0
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k == "jax" or k.startswith("jax."))]
 assert not loaded, loaded
