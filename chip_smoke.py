@@ -47,6 +47,26 @@ and Y = A @ X (SpMM) beside them:
                    heavy rows;
   wide x k = 2     the k-plane forward, then per-plane flat finals.
 
+and f64 (DOUBLE=1, native FP64 kernels) beside them:
+
+  f64 regimes      the fused regimes with f64 values, plus the fused f64
+                   kernel with its second scratch plane in a global
+                   workspace; the classic f64 device at G = 1 and G > 1,
+                   with a legacy final that spills, and the segment-sum
+                   route; A @ X at k = 1, 3, 8 on each;
+  headline f64     the headline matrix with f64 values: ``sm @ x`` on the
+                   fused f64 device, and ``sm @ X`` at k = 4 (one fused f64
+                   SpMV a column);
+  wide x f64       the roadNet-CA stand-in with f64 values: ``sm @ x`` on
+                   the classic f64 device (forward and legacy final, with
+                   its spills), and ``sm @ X`` at k = 8 (the k-plane f64
+                   forward, then the final a plane).
+
+Each f64 kernel is held to its plain version at rtol 1e-12, atol 1e-12 *
+max(1, max|ref|), and each f64 y (Y column by column) to the gold at the
+f64 tolerance with 0 errors and at max abs error <= 1e-10 * max(1,
+max|y|).
+
 Each main path is driven once through the entry points a user calls, with
 every kernel's launch count set to 0 just before and read just after; a
 kernel of that path that did not launch fails the run.  Then
@@ -67,10 +87,13 @@ import zlib
 
 import numpy as np
 
-# kernel vs plain version: the same f32 terms summed in another order
-RTOL = 1e-5
-ATOL_REL = 1e-5          # times max(1, max|y|)
-F32_TFLOPS = 67.0        # H100 SXM, f32 outside the tensor cores (data sheet)
+# kernel vs plain version: the same terms summed in another order, in f32
+# and in f64
+RTOL = {"float32": 1e-5, "float64": 1e-12}   # atol: RTOL * max(1, max|y|)
+# an f64 y against the gold: max abs error <= F64_GOLD_REL * max(1, max|y|)
+F64_GOLD_REL = 1e-10
+# H100 SXM data sheet, outside the tensor cores: f32 67, FP64 34 TFLOP/s
+TFLOPS = {"float32": 67.0, "float64": 34.0}
 
 # name -> (source, the TPU kernel it replaces)
 KERNELS = {
@@ -93,15 +116,29 @@ KERNELS = {
     "gstream_final_multi_legacy": (
         "sparsetpu_torch/csrc/gstream_final_multi.cu",
         "sparsetpu/kernels/spmm.py:117"),
+    "fused_spmv_f64": ("sparsetpu_torch/csrc/fused_spmv.cu",
+                       "sparsetpu/kernels/spmv_fused.py:507"),
+    "gstream_spmv_window_f64": ("sparsetpu_torch/csrc/gstream_spmv.cu",
+                                "sparsetpu/kernels/f64emu.py:163"),
+    "gstream_final_legacy_f64": ("sparsetpu_torch/csrc/gstream_final.cu",
+                                 "sparsetpu/kernels/f64emu.py:196"),
+    "gstream_spmm_f64": ("sparsetpu_torch/csrc/gstream_spmm.cu",
+                         "sparsetpu/kernels/f64emu.py:319"),
 }
+
+
+def _real(t) -> str:
+    """"float64" for a float64 tensor or array, else "float32"."""
+    return "float64" if str(t.dtype).endswith("float64") else "float32"
 
 
 def _agree(yk, yr) -> float:
     """Max abs difference of kernel and plain outputs; raises when it is
-    outside RTOL / ATOL_REL."""
+    outside RTOL of their real type (and RTOL * max(1, max|y|))."""
+    rtol = RTOL[_real(yr)]
     diff = (yk - yr).abs()
-    atol = ATOL_REL * max(1.0, yr.abs().max().item() if yr.numel() else 0.0)
-    bad = int((diff > atol + RTOL * yr.abs()).sum().item())
+    atol = rtol * max(1.0, yr.abs().max().item() if yr.numel() else 0.0)
+    bad = int((diff > atol + rtol * yr.abs()).sum().item())
     err = diff.max().item() if diff.numel() else 0.0
     if bad or not bool(yk.isfinite().all()):
         raise RuntimeError(f"kernel disagrees with its plain version: "
@@ -110,11 +147,21 @@ def _agree(yk, yr) -> float:
 
 
 def _gold_errors(h, m, x, y, dtype=np.float32) -> int:
+    """y (numpy) against ``spmv_gold`` at the tolerance of ``dtype``; an
+    f64 y also at max abs error <= F64_GOLD_REL * max(1, max|y|).  Raises
+    on any error."""
+    gold = h.spmv_gold(m, x)
     atol, rtol = h.default_tolerance(dtype, m.nr_nzeros / max(m.nr_rows, 1))
-    errors = h.verification(h.spmv_gold(m, x), y, diff_thres=atol,
-                            rel_thres=rtol)
+    errors = h.verification(gold, y, diff_thres=atol, rel_thres=rtol)
     if errors:
         raise RuntimeError(f"{errors} elements disagree with spmv_gold")
+    if dtype == np.float64:
+        err = float(np.abs(y - gold).max()) if y.size else 0.0
+        lim = F64_GOLD_REL * max(1.0, float(np.abs(y).max()) if y.size
+                                 else 0.0)
+        if y.dtype != np.float64 or err > lim:
+            raise RuntimeError(f"f64 y ({y.dtype}) off the gold by {err:.3e}"
+                               f" > {lim:.3e}")
     return errors
 
 
@@ -131,13 +178,20 @@ def _gold_errors_multi(s, m, X, Y, dtype=np.float32) -> int:
                                 rel_thres=rtol) for j in range(X.shape[1]))
     if errors:
         raise RuntimeError(f"{errors} elements disagree with spmm_gold")
+    if dtype == np.float64:
+        err = float(np.abs(Y - G).max(initial=0.0))
+        lim = F64_GOLD_REL * max(1.0, float(np.abs(Y).max(initial=0.0)))
+        if Y.dtype != np.float64 or err > lim:
+            raise RuntimeError(f"f64 Y ({Y.dtype}) off the gold by {err:.3e}"
+                               f" > {lim:.3e}")
     return errors
 
 
 def _X(n, k, seed):
     """(n, k) f64 from a seed: the gold sums in f64 (scipy keeps the
-    operands' type), the devices take X as f32."""
+    operands' type), the f32 devices take X as f32."""
     return np.random.default_rng(seed).standard_normal((n, k))
+
 
 
 def _nbytes(*tensors) -> int:
@@ -145,14 +199,14 @@ def _nbytes(*tensors) -> int:
                if t is not None)
 
 
-def _empty_trailing_slabs(h):
+def _empty_trailing_slabs(h, dtype=np.float32):
     """Nonzeros in the first 1000 rows only, so the last slabs own no nnz
     and must still be zeroed."""
     rng = np.random.default_rng(3)
     nr, nc = 35_000, 4000
     rows = np.repeat(np.arange(1000), 5)
     cols = rng.integers(0, nc, rows.size)
-    vals = rng.standard_normal(rows.size).astype(np.float32)
+    vals = rng.standard_normal(rows.size).astype(dtype)
     order = np.lexsort((cols, rows))
     ptr = np.zeros(nr + 1, np.int64)
     np.add.at(ptr, rows + 1, 1)
@@ -172,9 +226,10 @@ def _heavy_rows(h):
     return h.CSRMatrix.from_coo(rows, cols, vals, r, c)
 
 
-def road_net_ca(h, nr=1_971_281, nnz=5_533_214, seed=2):
+def road_net_ca(h, nr=1_971_281, nnz=5_533_214, seed=2, dtype=np.float32):
     """SNAP/roadNet-CA's shape and nnz with uniform random columns and
-    rows, f32 values; vectorised (no per-row loop)."""
+    rows, values of ``dtype`` (f32 by default); vectorised (no per-row
+    loop)."""
     rng = np.random.default_rng(seed)
     keys = np.zeros(0, np.int64)
     while keys.size < nnz:
@@ -184,7 +239,7 @@ def road_net_ca(h, nr=1_971_281, nnz=5_533_214, seed=2):
     keys = np.sort(rng.choice(keys, nnz, replace=False))
     rows, cols = keys // nr, keys % nr
     ptr = np.concatenate([[0], np.cumsum(np.bincount(rows, minlength=nr))])
-    vals = rng.standard_normal(nnz).astype(np.float32)
+    vals = rng.standard_normal(nnz).astype(dtype)
     return h.CSRMatrix(ptr, cols, vals, nr, nr)
 
 
@@ -205,10 +260,12 @@ class Smoke:
         from sparsetpu_torch import _host
         from sparsetpu_torch.bench.harness import call_ms, stream_ms
         from sparsetpu_torch.formats.gold import spmm_gold
-        from sparsetpu_torch.kernels import spmm, spmv_fused, spmv_gstream
+        from sparsetpu_torch.kernels import (f64emu, spmm, spmv_fused,
+                                             spmv_gstream)
         from sparsetpu_torch.pack import final_levels
         self.torch, self.st, self.h = torch, st, _host
         self.fused, self.sg, self.fl = spmv_fused, spmv_gstream, final_levels
+        self.f64 = f64emu
         self.sp, self.spmm_gold = spmm, spmm_gold
         self._call_ms, self._stream_ms = call_ms, stream_ms
         self.dev = torch.device(device)
@@ -232,6 +289,10 @@ class Smoke:
         self.fused.fused_spmm.launches = 0
         self.sp.gstream_chunk_sums_multi.launches = 0
         self.sp.final_gather_multi.launches.clear()
+        self.fused.fused_spmv_f64.launches = 0
+        self.sg.gstream_chunk_sums_f64.launches = 0
+        self.sg.final_gather_f64.launches = 0
+        self.sp.gstream_chunk_sums_multi_f64.launches = 0
 
     def _counts(self):
         f = self.sg.gstream_chunk_sums.launches
@@ -245,10 +306,22 @@ class Smoke:
                 "fused_spmm": self.fused.fused_spmm.launches,
                 "gstream_spmm": self.sp.gstream_chunk_sums_multi.launches,
                 "gstream_final_multi_flat": mw["flat"],
-                "gstream_final_multi_legacy": mw["legacy"]}
+                "gstream_final_multi_legacy": mw["legacy"],
+                "fused_spmv_f64": self.fused.fused_spmv_f64.launches,
+                "gstream_spmv_window_f64":
+                    self.sg.gstream_chunk_sums_f64.launches,
+                "gstream_final_legacy_f64": self.sg.final_gather_f64.launches,
+                "gstream_spmm_f64":
+                    self.sp.gstream_chunk_sums_multi_f64.launches}
 
     def kernels_of(self, d):
         """The kernels a device's ``spmv`` launches."""
+        if d.dtype == self.torch.float64:
+            if isinstance(d, self.fused.FusedDevice):
+                return {"fused_spmv_f64"}
+            return {"gstream_spmv_window_f64"} | (
+                {"gstream_final_legacy_f64"} if d.final is not None
+                else set())
         if isinstance(d, self.fused.FusedDevice):
             return {"fused_spmv"}
         ks = {"gstream_spmv_tile_base" if d.stream.GL
@@ -261,8 +334,14 @@ class Smoke:
         return ks
 
     def spmm_kernels_of(self, d):
-        """The kernels a device's SpMM launches (``spmm`` or
-        ``spmm_gstream``)."""
+        """The kernels a device's SpMM launches (``spmm``,
+        ``spmm_gstream`` or ``spmm_df64``)."""
+        if d.dtype == self.torch.float64:
+            if isinstance(d, self.fused.FusedDevice):
+                return {"fused_spmv_f64"}
+            return {"gstream_spmm_f64"} | (
+                {"gstream_final_legacy_f64"} if d.final is not None
+                else set())
         if isinstance(d, self.fused.FusedDevice):
             return {"fused_spmm"}
         ks = {"gstream_spmm"}
@@ -276,9 +355,10 @@ class Smoke:
                    for lvl in getattr(d.final, "levels", [d.final])}
         return ks
 
-    def drive(self, tag, fn, expected):
+    def drive(self, tag, fn, expected, main=True):
         """The main path: counts set to 0 just before ``fn``, read just
-        after; every expected kernel must have launched."""
+        after; every expected kernel must have launched.  The counts add to
+        the run's totals when ``main`` (not for the regimes)."""
         self._zero_counts()
         t0 = time.perf_counter()
         y = fn()
@@ -291,15 +371,17 @@ class Smoke:
                 raise RuntimeError(f"{tag}: the main path did not launch "
                                    f"{missing} (counts {counts})")
         for k, v in counts.items():
-            self.launches[k] += v
-        print(f"{tag}: main path in {dt:.2f} s, launches "
+            self.launches[k] += v if main else 0
+        print(f"{tag}: {'main path' if main else 'run'} in {dt:.2f} s, "
+              f"launches "
               f"{ {k: v for k, v in counts.items() if v} }", flush=True)
         return y
 
     # -- per-kernel measurement ------------------------------------------------
     def record(self, name, tag, err, ms, plain_ms, nbytes, flops, lib_ms):
         byte_ms = nbytes / (self.hbm * 1e9) * 1e3
-        op_ms = flops / (F32_TFLOPS * 1e12) * 1e3
+        real = "float64" if name.endswith("_f64") else "float32"
+        op_ms = flops / (TFLOPS[real] * 1e12) * 1e3
         bound_ms = max(byte_ms, op_ms)
         by = "bytes" if byte_ms >= op_ms else "operations"
         lib = f"{lib_ms:.4f} ms" if lib_ms is not None else "none"
@@ -333,7 +415,9 @@ class Smoke:
         idx, ok = sg.forward_gather_index(fwd.meta16, fwd.step_window,
                                           T=fwd.T, G=fwd.G, GL=fwd.GL,
                                           tile_base=fwd.tile_base)
-        vals = fwd.values.view(idx.shape).float()
+        real = torch.float64 if fwd.values.dtype == torch.float64 \
+            else torch.float32
+        vals = fwd.values.view(idx.shape).to(real)
         keep = ok & (vals != 0)
         out = ((torch.arange(idx.shape[0], device=d).view(-1, 1, 1) * fwd.P
                 + torch.arange(8, device=d).view(1, -1, 1) // (8 // fwd.P))
@@ -354,6 +438,8 @@ class Smoke:
             return cr
         name = ("gstream_spmv_tile_base" if fwd.GL
                 else "gstream_spmv_window")
+        if x2.dtype == self.torch.float64:
+            name = "gstream_spmv_window_f64"
         ms = self.call_ms(lambda: fwd(x2))
         plain_ms = self.call_ms(lambda: fwd(x2, ref), repeats=10)
         rows, cols, vals, n_out = self._forward_incidence(fwd)
@@ -382,7 +468,9 @@ class Smoke:
                                    cr)
         nb = _nbytes(fwd.values, fwd.meta16, fwd.step_window, fwd.tile_base,
                      X, ck)
-        self.record("gstream_spmm", tag, err, ms, plain_ms, nb,
+        name = ("gstream_spmm_f64" if X.dtype == self.torch.float64
+                else "gstream_spmm")
+        self.record(name, tag, err, ms, plain_ms, nb,
                     2 * fwd.values.numel() * X.shape[1], lib_ms)
         return cr
 
@@ -419,6 +507,8 @@ class Smoke:
             return
         name = "gstream_final_flat" if levels[0].v2 else \
             "gstream_final_legacy"
+        if vec.dtype == torch.float64:
+            name = "gstream_final_legacy_f64"
         ms = self.call_ms(lambda: [lvl.grid(vec) for lvl in levels])
         plain_ms = self.call_ms(lambda: [lvl.grid(vec, ref)
                                          for lvl in levels], repeats=10)
@@ -427,9 +517,10 @@ class Smoke:
         flat = torch.nn.functional.pad(flat, (0, max(0, n_pos - flat.numel())))
         total = sum(g.reshape(-1)[:nr_rows] for g in gr)
         lib_ms = self.library_spmv(
-            rows, cols, torch.ones(rows.numel(), device=self.dev),
+            rows, cols, torch.ones(rows.numel(), dtype=vec.dtype,
+                                   device=self.dev),
             (n_out, n_pos), flat[:n_pos], total)
-        nb = n_pos * 4 + n_out * 4 + sum(
+        nb = (n_pos + n_out) * vec.element_size() + sum(
             _nbytes(lvl.step_meta, lvl.tile_bases, lvl.inst_start,
                     lvl.cells, lvl.route) for lvl in levels)
         self.record(name, tag, err, ms, plain_ms, nb,
@@ -467,7 +558,8 @@ class Smoke:
         versions (the per-plane finishes run the SpMV kernels, which
         ``gstream`` checks)."""
         cr = self.forward_multi(d.stream, d.prepare_x_multi(X), tag, measure)
-        if isinstance(d.final, self.sg.FinalDevice) and not len(d.flevels):
+        if isinstance(d.final, self.sg.FinalDevice) and not len(d.flevels) \
+                and cr.dtype == self.torch.float32:
             self.final_multi(d.final, cr, tag, measure)
 
     def gstream(self, d, x, tag, measure=True):
@@ -495,6 +587,8 @@ class Smoke:
         else:
             name, blocks = "fused_spmv", dev.blocks
             ref, k = fused.fused_spmv_reference, 1
+            if dev.dtype == self.torch.float64:
+                name = "fused_spmv_f64"
         yk, yr = blocks(x), blocks(x, ref)
         self.sync()
         err = _agree(yk, yr)
@@ -624,30 +718,38 @@ class Smoke:
         return out + f"; final {type(fin).__name__}: {kinds}"
 
 
+def _fused_cases(s, dtype):
+    """(tag, matrix, pack kwargs, regime) of one small pack per regime of
+    the fused kernel, with values of ``dtype`` (the f64 hi planes are the
+    f32 values, so both packs hit the same regimes)."""
+    h, fused = s.h, s.fused
+    rc = h.random_csr
+    return [
+        ("Q=1 fin_direct", rc(30_000, 120_000, 1.05 / 120_000, seed=6,
+                              dtype=dtype), dict(Q=1),
+         lambda p: p.Q == 1 and p.fin_direct == 1),
+        ("Q=1 two-stage SGRP=4", rc(20_000, 90_000, 5.6 / 90_000, seed=3,
+                                    dtype=dtype), dict(Q=1, sgrp=4),
+         lambda p: p.Q == 1 and p.SGRP == 4 and p.fin_direct == 0),
+        ("Q=2", rc(3000, 20_000, 3 / 20_000, seed=1, dtype=dtype),
+         dict(Q=2), lambda p: p.Q == 2),
+        ("Q=4", rc(800, 5000, 0.01, seed=7, dtype=dtype), dict(Q=4),
+         lambda p: p.Q == 4),
+        ("Q=8", rc(12_000, 10_000, 0.002, seed=11, dtype=dtype), dict(Q=8),
+         lambda p: p.Q == 8),
+        ("spills + non-uniform slabs (NumPy engine)",
+         rc(2000, 20_000, 0.002, seed=1, dtype=dtype),
+         dict(use_native=False),
+         lambda p: p.spill_row.size > 0 and not fused.slabs_uniform(p)),
+        ("empty trailing slabs", _empty_trailing_slabs(h, dtype), {},
+         lambda p: p.n_slabs >= 2 and np.diff(p.slab_bounds)[-1] > 0),
+    ]
+
+
 def fused_regimes(s):
     """Kernel vs plain version and vs gold on one small pack per regime."""
     h, fused = s.h, s.fused
-    rc = h.random_csr
-    f32 = np.float32
-    cases = [
-        ("Q=1 fin_direct", rc(30_000, 120_000, 1.05 / 120_000, seed=6,
-                              dtype=f32), dict(Q=1),
-         lambda p: p.Q == 1 and p.fin_direct == 1),
-        ("Q=1 two-stage SGRP=4", rc(20_000, 90_000, 5.6 / 90_000, seed=3,
-                                    dtype=f32), dict(Q=1, sgrp=4),
-         lambda p: p.Q == 1 and p.SGRP == 4 and p.fin_direct == 0),
-        ("Q=2", rc(3000, 20_000, 3 / 20_000, seed=1, dtype=f32), dict(Q=2),
-         lambda p: p.Q == 2),
-        ("Q=4", rc(800, 5000, 0.01, seed=7, dtype=f32), dict(Q=4),
-         lambda p: p.Q == 4),
-        ("Q=8", rc(12_000, 10_000, 0.002, seed=11, dtype=f32), dict(Q=8),
-         lambda p: p.Q == 8),
-        ("spills + non-uniform slabs (NumPy engine)",
-         rc(2000, 20_000, 0.002, seed=1, dtype=f32), dict(use_native=False),
-         lambda p: p.spill_row.size > 0 and not fused.slabs_uniform(p)),
-        ("empty trailing slabs", _empty_trailing_slabs(h), {},
-         lambda p: p.n_slabs >= 2 and np.diff(p.slab_bounds)[-1] > 0),
-    ]
+    cases = _fused_cases(s, np.float32)
     for tag, m, kw, regime in cases:
         p = h.pack_fused(m, **kw)
         if p is None or not regime(p):
@@ -793,6 +895,107 @@ def classic_regimes(s):
           f"spmv_gold and (k=3) spmm_gold 0 errors", flush=True)
 
 
+def f64_fused_regimes(s):
+    """The fused regimes with f64 values: the f64 fused kernel vs its plain
+    version, the workspace placement of its second scratch plane, and y
+    (Y at k = 1, 3, 8: one f64 SpMV a column) vs the gold."""
+    h, fused, torch = s.h, s.fused, s.torch
+    f64 = np.float64
+    cases = _fused_cases(s, f64)
+    for tag, m, kw, regime in cases:
+        packs = fused.pack_fused_df64(m, **kw)
+        if packs is None or not regime(packs[0]):
+            raise RuntimeError(f"f64 {tag}: the pack does not hit its regime")
+        dev = fused.DF64FusedDevice.from_packed(*packs, s.dev)
+        p = dev.meta
+        x = np.random.default_rng(9).standard_normal(m.nr_cols)
+        x2 = dev.prepare_x(x)
+        y = s.drive(f"f64 fused regime {tag}",
+                    lambda: dev.spmv(x2, x_is_packed=True),
+                    {"fused_spmv_f64"}, main=False)
+        _gold_errors(h, m, x, y.cpu().numpy(), f64)
+        yk = dev.blocks(x2)
+        yr = dev.blocks(x2, kernel=fused.fused_spmv_reference)
+        s.sync()
+        err = _agree(yk, yr)
+        ws = "-"
+        if not p.fin_direct and s.dev.type == "cuda":
+            # the second scratch plane in a global workspace, as the
+            # wrapper places it where the opt-in shared memory is too small
+            t = {n: getattr(dev, n) for n, _ in fused._KERNEL_INPUTS}
+            yw = fused._fused_spmv_f64_launch(
+                t, x2, workspace=True, T=p.T, GLW=p.GLW, P=p.planes,
+                F1_max=p.F1_max, F2_max=p.F2_max, F1S=p.F1S, OBp=p.OBp,
+                n_slabs=p.n_slabs, fin_direct=p.fin_direct)
+            s.sync()
+            ws = f"{_agree(yw, yr):.3e}"
+        fits = (fused.f64_scratch_fits(p.T, p.planes, p.F1S, p.fin_direct,
+                                       s.dev) if s.dev.type == "cuda"
+                else True)
+        for k in (1, 3, 8):
+            X = _X(m.nr_cols, k, seed=k)
+            _gold_errors_multi(s, m, X, s.f64.spmm_df64(dev, torch.as_tensor(
+                X, device=s.dev)), f64)
+        print(f"f64 fused regime {tag}: Q={p.Q} T={p.T} steps={p.n_steps} "
+              f"SGRP={p.SGRP} fin_direct={p.fin_direct} F1S={p.F1S} "
+              f"spills={p.spill_row.size} scratch in shared memory={fits} | "
+              f"kernel vs plain max abs {err:.3e}, workspace placement vs "
+              f"plain {ws} | y and Y (k=1,3,8) vs the gold 0 errors",
+              flush=True)
+
+
+def f64_classic_regimes(s):
+    """The classic f64 device: forward at G = 1 and G > 1, a legacy final
+    that spills, the segment-sum route; each kernel vs its plain version,
+    y and Y (k = 1, 3, 8) vs the gold."""
+    h, fl, f64 = s.h, s.fl, np.float64
+    rc = h.random_csr
+    cases = [
+        ("G=1", rc(3000, 900, 0.02, seed=1, dtype=f64), 1,
+         lambda d: d.meta.G == 1 and d.final is not None),
+        ("G=4", rc(3000, 5000, 0.004, seed=24, dtype=f64), 4,
+         lambda d: d.meta.G == 4 and d.final is not None),
+        ("legacy final with spills",
+         rc(1000, 300_000, 40 / 300_000, seed=1, dtype=f64), 4,
+         lambda d: d.final is not None and d.final.n_spills > 1000),
+        ("model-chosen G", rc(5000, 5000, 0.01, seed=0, dtype=f64), None,
+         lambda d: d.final is not None),
+    ]
+    builds = fl._FinalLevel.build
+    for tag, m, G, regime in cases + [("segment-sum route",
+                                       rc(3000, 6000, 0.004, seed=5,
+                                          dtype=f64), None,
+                                       lambda d: d.final is None)]:
+        if tag == "segment-sum route":
+            # no final builds, as a pathological placement makes it
+            fl._FinalLevel.build = classmethod(lambda cls, *a, **k: None)
+        try:
+            d = s.f64.DF64GStreamDevice.from_packed(
+                *s.f64.pack_gstream_df64(m, G=G), s.dev)
+        finally:
+            fl._FinalLevel.build = builds
+        if not regime(d):
+            raise RuntimeError(f"f64 classic {tag}: the pack does not hit "
+                               f"its regime: {s.describe(d)}")
+        x = np.random.default_rng(9).standard_normal(m.nr_cols)
+        xt = s.torch.as_tensor(x, device=s.dev)
+        y = s.drive(f"f64 classic regime {tag}", lambda: d.spmv(xt),
+                    s.kernels_of(d), main=False)
+        _gold_errors(h, m, x, y.cpu().numpy(), f64)
+        s.gstream(d, xt, tag, measure=False)
+        for k in (1, 3, 8):
+            X = _X(m.nr_cols, k, seed=k)
+            Xt = s.torch.as_tensor(X, device=s.dev)
+            Y = s.drive(f"f64 classic regime {tag} SpMM k={k}",
+                        lambda: s.f64.spmm_df64(d, Xt), s.spmm_kernels_of(d),
+                        main=False)
+            _gold_errors_multi(s, m, X, Y, f64)
+            s.gstream_multi(d, Xt, tag, measure=False)
+        print(f"f64 classic regime {tag}: {s.describe(d)} | kernels agree "
+              f"with their plain versions | y and Y (k=1,3,8) vs the gold 0 "
+              f"errors", flush=True)
+
+
 def main_path(s, tag, make, run_devices, t0):
     """Build a matrix, pack it with ``run_devices`` (a ``SparseMatrix`` or a
     ``GStreamDevice``, and the devices behind it), drive its ``spmv`` once
@@ -800,8 +1003,10 @@ def main_path(s, tag, make, run_devices, t0):
     torch, h = s.torch, s.h
     m = make()
     t_gen = time.perf_counter() - t0
+    dt = np.float64 if m.values.dtype == np.float64 else np.float32
     x = np.random.default_rng(0).standard_normal(m.nr_cols)
-    xt = torch.as_tensor(x, dtype=torch.float32, device=s.dev)
+    xt = torch.as_tensor(x, dtype=getattr(torch, np.dtype(dt).name),
+                         device=s.dev)
     t1 = time.perf_counter()
     sm, devices = run_devices(m)
     t_pack = time.perf_counter() - t1
@@ -809,10 +1014,12 @@ def main_path(s, tag, make, run_devices, t0):
     y = s.drive(tag, lambda: sm.spmv(xt), expected)
     if tuple(y.shape) != (m.nr_rows,) or not bool(y.isfinite().all()):
         raise RuntimeError(f"{tag}: bad y, shape {tuple(y.shape)}")
-    _gold_errors(h, m, x, y.cpu().numpy())
-    print(f"{tag}: {m.nr_rows}x{m.nr_cols} nnz={m.nr_nzeros}, matrix in "
-          f"{t_gen:.1f} s, pack + upload in {t_pack:.1f} s, 0 errors vs "
-          f"spmv_gold", flush=True)
+    _gold_errors(h, m, x, y.cpu().numpy(), dt)
+    gerr = float(np.abs(y.cpu().numpy() - h.spmv_gold(m, x)).max())
+    print(f"{tag}: {m.nr_rows}x{m.nr_cols} nnz={m.nr_nzeros} "
+          f"{np.dtype(dt).name}, matrix in {t_gen:.1f} s, pack + upload in "
+          f"{t_pack:.1f} s, 0 errors vs spmv_gold (max abs {gerr:.3e}, "
+          f"max|y| {y.abs().max().item():.3e})", flush=True)
     for d in devices:
         print(f"  device: {s.describe(d)}", flush=True)
     return m, x, xt, sm, devices
@@ -823,10 +1030,12 @@ def spmm_path(s, tag, m, fn, devices, k):
     main path with k columns, the launch counts of ``devices``' SpMM
     kernels read around it, and check Y against ``spmm_gold``."""
     X = _X(m.nr_cols, k, seed=k)
-    Xt = s.torch.as_tensor(X, dtype=s.torch.float32, device=s.dev)
+    dt = np.float64 if m.values.dtype == np.float64 else np.float32
+    Xt = s.torch.as_tensor(X, dtype=getattr(s.torch, np.dtype(dt).name),
+                           device=s.dev)
     expected = set().union(*(s.spmm_kernels_of(d) for d in devices))
     Y = s.drive(tag, lambda: fn(Xt), expected)
-    _gold_errors_multi(s, m, X, Y)
+    _gold_errors_multi(s, m, X, Y, dt)
     print(f"{tag}: Y {tuple(Y.shape)}, 0 errors vs spmm_gold (column by "
           f"column)", flush=True)
     return Xt
@@ -992,6 +1201,59 @@ def run(device, hbm: float, small: bool = False):
           f"{_agree(yk, yr):.3e}", flush=True)
     s.gstream_multi(sm.heavy_device, Xt, tag + ", heavy rows", measure=False)
     print(f"phase web graph: {time.perf_counter() - t0:.1f} s", flush=True)
+    del m, sm, light, Xt
+
+    # ---- f64 (DOUBLE=1): the regimes, then the headline and wide x in f64
+    t0 = time.perf_counter()
+    f64_fused_regimes(s)
+    f64_classic_regimes(s)
+    print(f"phase f64 regimes: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+
+    def fused_f64(mat):
+        sm = st.SparseMatrix(mat, device=s.dev)
+        if not isinstance(sm.device_module, fused.DF64FusedDevice):
+            raise RuntimeError("headline f64: expected the fused f64 device")
+        return sm, [sm.device_module]
+
+    m, x, xt, sm, _ = main_path(
+        s, "headline f64",
+        lambda: h.random_csr(20_000 if small else 200_000, 100_000,
+                             density=0.0005, seed=1, dtype=np.float64),
+        fused_f64, t0)
+    lib_ms = s.whole_call(sm, m, xt, "headline f64")
+    s.profile("headline f64", lambda: sm @ xt)
+    s.fused_kernel(sm.device_module, sm.prepare_x(x), "headline f64", lib_ms)
+    tag = "headline f64 SpMM k=4"
+    Xt = spmm_path(s, tag, m, lambda X: sm @ X, [sm.device_module], 4)
+    s.whole_call_multi(sm, m, Xt, tag)
+    s.profile(tag, lambda: sm @ Xt)
+    print(f"phase headline f64: {time.perf_counter() - t0:.1f} s", flush=True)
+    del m, sm, Xt
+
+    t0 = time.perf_counter()
+
+    def classic_f64(mat):
+        sm = st.SparseMatrix(mat, device=s.dev)
+        if not isinstance(sm.device_module, s.f64.DF64GStreamDevice):
+            raise RuntimeError("wide x f64: expected the classic f64 device")
+        return sm, [sm.device_module]
+
+    road64 = (lambda: road_net_ca(h, nnz=20_000, dtype=np.float64)) \
+        if small else (lambda: road_net_ca(h, dtype=np.float64))
+    tag = "wide x f64 (roadNet-CA)"
+    m, x, xt, sm, _ = main_path(s, tag, road64, classic_f64, t0)
+    d = sm.device_module
+    s.whole_call(sm, m, xt, tag)
+    s.profile(tag, lambda: sm @ xt)
+    s.gstream(d, xt, tag)
+    tag = "wide x f64 SpMM k=8 (roadNet-CA)"
+    Xt = spmm_path(s, tag, m, lambda X: sm @ X, [d], 8)
+    s.whole_call_multi(sm, m, Xt, tag)
+    s.profile(tag, lambda: sm @ Xt)
+    s.gstream_multi(d, Xt, tag)
+    print(f"phase wide x f64: {time.perf_counter() - t0:.1f} s", flush=True)
 
     missing = sorted(set(KERNELS) - set(s.records))
     if missing:

@@ -1,4 +1,5 @@
-"""Public user API for f32 SpMV (counterpart of ``sparsetpu/api/api.py``).
+"""Public user API for SpMV and SpMM (counterpart of
+``sparsetpu/api/api.py``).
 
 ``SparseMatrix(m)`` packs a CSR matrix onto the card (``device="cuda"`` by
 default; pass ``device="cpu"`` for the plain PyTorch versions) and answers
@@ -16,9 +17,14 @@ default; pass ``device="cpu"`` for the plain PyTorch versions) and answers
 ``A @ X`` with X of shape (nr_cols, k) routes as the JAX package's
 ``spmm`` (``api/api.py:255-291``): the fused SpMM kernel where the device
 takes k planes, the classic k-plane SpMM otherwise (on a classic device
-built from the kept source CSR when the matrix is fused).  The f64 devices
-and SpGEMM are not ported yet and raise ``NotImplementedError`` naming the
-ROADMAP item.  Nothing falls back to COO or to the CPU.
+built from the kept source CSR when the matrix is fused).
+
+f64 configs (the default for an f64 matrix) route as the JAX package's
+DOUBLE path (``api/api.py:62-83``): the fused f64 device where the layout
+applies, else the classic f64 device; x, X and y are float64, and ``A @ X``
+is ``spmm_df64``.  SpGEMM is not ported yet and raises
+``NotImplementedError`` naming the ROADMAP item.  Nothing falls back to COO
+or to the CPU.
 """
 
 from __future__ import annotations
@@ -29,9 +35,11 @@ import numpy as np
 import torch
 
 from .. import _host
+from ..kernels.f64emu import DF64GStreamDevice, spmm_df64
 from ..kernels.spmm import spmm_gstream
 from ..kernels.spmv_coo import spmm_coo, spmv_coo
-from ..kernels.spmv_fused import FusedDevice
+from ..kernels.spmv_fused import (DF64FusedDevice, FusedDevice,
+                                  pack_fused_df64)
 from ..kernels.spmv_gstream import GStreamDevice
 from ..pack.balance import balance_rows
 from ..utils.device import require_device
@@ -72,7 +80,8 @@ class SparseMatrix:
         self.dtype = (torch.float64 if self.config.is_double
                       else torch.float32)
         self._packed = None
-        self._device = None        # FusedDevice or GStreamDevice
+        self._device = None        # FusedDevice or GStreamDevice (or the
+                                   # f64 devices, their subclasses)
         self._parts = None         # row partitions (num_partitions > 1)
         self._heavy_dev = None     # the hybrid's heavy-row device
         self._heavy_rows = None
@@ -88,12 +97,11 @@ class SparseMatrix:
             self._col_ind = up(coo.col_ind, torch.int64)
             self._values = up(coo.values, self.dtype)
             return
-        if self.config.is_double:
-            raise NotImplementedError(
-                "f64 (DOUBLE=1) runs on the two-float devices, not ported "
-                "yet: ROADMAP Queue 1 #6")
-        vdt = torch.bfloat16 if self.config.is_bf16 else None
         self._source = matrix
+        if self.config.is_double:
+            self._build_double(matrix)
+            return
+        vdt = torch.bfloat16 if self.config.is_bf16 else None
         if self.config.num_partitions > 1:
             self._build_partitions(matrix, vdt)
             return
@@ -109,6 +117,25 @@ class SparseMatrix:
         else:
             self._packed = _pack_classic(matrix, self.config)
             self._device = GStreamDevice(self._packed, self.device, vdt)
+
+    def _build_double(self, matrix) -> None:
+        """The f64 device, routed as ``api/api.py:62-83``: fused where
+        ``block_cols >= 16384`` and ``pack_fused_df64`` applies
+        (``backend="fused"`` too falls back to classic, as there), else
+        classic; no hybrid, and no row partitions."""
+        cfg = self.config
+        if cfg.num_partitions > 1:
+            raise ValueError(
+                "num_partitions > 1 with dtype=float64 is not supported on "
+                "one chip; shard over a mesh with sparsetpu.dist instead")
+        packs = None
+        if cfg.block_cols >= 16 * 1024:
+            packs = pack_fused_df64(matrix, Q=cfg.vf or None)
+        if packs is not None:
+            self._device = DF64FusedDevice.from_packed(*packs, self.device)
+        else:
+            self._device = DF64GStreamDevice(matrix, self.device)
+        self._packed = self._device.meta
 
     def _route_fused(self, matrix):
         """The fused pack of ``matrix`` or of its light rows (the heavy ones
@@ -186,8 +213,9 @@ class SparseMatrix:
         return self._parts
 
     def prepare_x(self, x) -> torch.Tensor:
-        """Pre-pack x for repeated ``spmv_packed_x`` calls.  Partitions and
-        the hybrid keep x unpacked: their devices pad it differently."""
+        """Pre-pack x for repeated ``spmv_packed_x`` calls (float64 for an
+        f64 config).  Partitions and the hybrid keep x unpacked: their
+        devices pad it differently."""
         if self.backend == "coo":
             return torch.as_tensor(x, dtype=self.dtype, device=self.device)
         if self._parts is not None or self._heavy_dev is not None:
@@ -214,11 +242,15 @@ class SparseMatrix:
         return self.spmv_packed_x(self.prepare_x(x))
 
     def spmm(self, x) -> torch.Tensor:
-        """Y = A @ X (nr_rows, k) for X of shape (nr_cols, k)."""
+        """Y = A @ X (nr_rows, k) for X of shape (nr_cols, k); float64 X
+        and Y for an f64 config."""
         if self.backend == "coo":
             x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
             return spmm_coo(self._row_ind, self._col_ind, self._values, x,
                             self.nr_rows)
+        if self.config.is_double:
+            return spmm_df64(self._device, torch.as_tensor(
+                x, dtype=torch.float64, device=self.device))
         X = torch.as_tensor(x, dtype=torch.float32, device=self.device)
         if X.dim() != 2 or X.shape[0] != self.nr_cols:
             raise ValueError(f"X has shape {tuple(X.shape)}, expected "

@@ -153,6 +153,9 @@ def bench_spmv(matrix, name: str = "random", config=None, repeats: int = 50,
     nnz = matrix.nr_nzeros
     data_mb = (sm.packed.storage_bytes() if sm.packed is not None
                else nnz * 8) / 1e6
+    if sm.packed is not None and sm.dtype == torch.float64:
+        # the f64 devices stream the hi + lo plane as one 8-byte value
+        data_mb += sm.packed.values.nbytes / 1e6
     total_s = total_ms / 1e3
     roofline = (data_mb * 1e6 / (hbm_gbps(dev) * 1e9) / total_s
                 if dev.type == "cuda" else float("nan"))

@@ -25,7 +25,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--random", type=str, default=None, metavar="RxCxD",
                    help="use a random matrix, e.g. 200000x100000x0.0005")
     p.add_argument("--double", action="store_true",
-                   help="double precision (DOUBLE=1): not ported yet")
+                   help="double precision (DOUBLE=1): f64 matrix, x and y "
+                        "on the f64 devices (native FP64 kernels)")
     p.add_argument("--vf", type=int, default=0, choices=(0, 1, 2, 4, 8),
                    help="vector factor / row-pad quantum (VF); 0 = chosen "
                         "by the layout model")
@@ -45,17 +46,16 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.double:
-        raise NotImplementedError("--double: the f64 devices are not "
-                                  "ported yet (ROADMAP Queue 1 #6)")
 
     from . import _host
     from .bench.harness import bench_spmv
     from .utils.device import require_device
 
     device = require_device(args.device)
+    dtype = np.float64 if args.double else np.float32
     print(f"sparsetpu_torch SpMV: partitions={args.partitions} "
-          f"vf={args.vf or 'auto'} precision=single "
+          f"vf={args.vf or 'auto'} "
+          f"precision={'double' if args.double else 'single'} "
           f"backend={args.backend} device={device}")
     if device.type == "cuda":
         import torch
@@ -63,18 +63,18 @@ def main(argv=None) -> int:
 
     if args.random:
         r, c, d = args.random.split("x")
-        matrix = _host.random_csr(int(r), int(c), float(d),
-                                  dtype=np.float32, seed=0)
+        matrix = _host.random_csr(int(r), int(c), float(d), dtype=dtype,
+                                  seed=0)
         name = f"random-{args.random}"
     elif args.matrix:
-        matrix = _host.read_matrix(args.matrix, dtype=np.float32)
+        matrix = _host.read_matrix(args.matrix, dtype=dtype)
         name = args.matrix
     else:
         print("error: provide a matrix file or --random RxCxD",
               file=sys.stderr)
         return 2
 
-    cfg = _host.SpmvConfig(dtype=np.float32, vf=args.vf,
+    cfg = _host.SpmvConfig(dtype=dtype, vf=args.vf,
                            num_partitions=args.partitions)
     result = bench_spmv(matrix, name=name, config=cfg,
                         repeats=args.repeats, backend=args.backend,

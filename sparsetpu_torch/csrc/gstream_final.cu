@@ -2,14 +2,21 @@
 // chunk partial sums (the position vector, x2 below) -> y, where output
 // cell (r / 128, r % 128) IS y[r].
 //
-// Replaces two TPU kernels of sparsetpu/kernels/spmv_pallas.py:
-//   _final_kernel     (legacy, launched by _final_gather_sums): per
-//                     instance <= nw windows of 8G rows at step-level bases;
-//   _final_kernel_v2  (flat, launched by _final_gather_sums_v2): per
-//                     instance and out tile, nwin sub-windows of GL_f groups
-//                     at per-(tile, window) bases inside staged blocks of
-//                     GS groups.
-// One template covers both (kV2).  G below is G for the legacy scheme and
+// Replaces three TPU kernels, each launched through pl.pallas_call:
+//   sparsetpu/kernels/spmv_pallas.py:_final_kernel     (legacy, launched by
+//       _final_gather_sums): per instance <= nw windows of 8G rows at
+//       step-level bases;
+//   sparsetpu/kernels/spmv_pallas.py:_final_kernel_v2  (flat, launched by
+//       _final_gather_sums_v2): per instance and out tile, nwin sub-windows
+//       of GL_f groups at per-(tile, window) bases inside staged blocks of
+//       GS groups;
+//   sparsetpu/kernels/f64emu.py:_df64_final_kernel     (f64 legacy,
+//       launched by _df64_final_sums): the legacy scheme on (hi, lo) float
+//       pairs with double-float adds across instances.
+// One template covers all three: kV2, and the real type R of the
+// positions, the sums and y (float; double for the f64 device, whose adds
+// are then native FP64: entry point gstream_final_f64_launch, legacy
+// scheme only, as the TPU's df64 final).  G below is G for the legacy scheme and
 // GL_f for the flat one; nw is nw or nwin (already the doubled count).
 //
 // Slot (s, l) of out tile t in instance i, cell c = cells[s, j] (int16)
@@ -27,7 +34,8 @@
 // checks every window against x2's rows on the host.
 //
 // What bounds it on the card: the cell (2 B) and route (1 B) streams, 3 B
-// per slot of every instance, read once, plus 4 B per y element written;
+// per slot of every instance, read once, plus 4 B (8 B in f64) per y
+// element written;
 // the position-vector gathers land in windows the builder chose to be
 // local, which L2 holds.
 //
@@ -45,15 +53,15 @@ constexpr int kChunk = 8;
 constexpr int kThreads = 256;
 constexpr int kTilesPerBlock = kThreads / kLanes;
 
-template <bool kV2>
+template <bool kV2, typename R>
 __global__ void __launch_bounds__(kThreads)
 gstream_final_kernel(const int32_t* __restrict__ step_meta,
                      const int32_t* __restrict__ tile_bases,
                      const int32_t* __restrict__ inst_start,
-                     const float* __restrict__ x2,
+                     const R* __restrict__ x2,
                      const int16_t* __restrict__ cells,
                      const int8_t* __restrict__ route,
-                     float* __restrict__ out, long long nt_pad, int tps,
+                     R* __restrict__ out, long long nt_pad, int tps,
                      int G, int nw, int GS) {
   const long long ot =
       (long long)blockIdx.x * kTilesPerBlock + threadIdx.x / kLanes;
@@ -63,11 +71,11 @@ gstream_final_kernel(const int32_t* __restrict__ step_meta,
   const int t = (int)(ot % tps);
   const int first = inst_start[o];
   const int last = inst_start[o + 1];
-  float total = 0.f;
+  R total = 0;
   for (int i = first; i < last; ++i) {
     const int32_t* sm = step_meta + (long long)i * (nw + 2);
     const long long tile = (long long)i * tps + t;
-    float part = 0.f;
+    R part = 0;
 #pragma unroll
     for (int s = 0; s < kChunk; ++s) {
       const long long row = (tile * kChunk + s) * kLanes;
@@ -103,14 +111,31 @@ extern "C" int gstream_final_launch(int v2, const void* step_meta,
   const long long blocks = (nt_pad + kTilesPerBlock - 1) / kTilesPerBlock;
   cudaStream_t s = (cudaStream_t)stream;
   if (v2)
-    gstream_final_kernel<true><<<(unsigned)blocks, kThreads, 0, s>>>(
+    gstream_final_kernel<true, float><<<(unsigned)blocks, kThreads, 0, s>>>(
         (const int32_t*)step_meta, (const int32_t*)tile_bases,
         (const int32_t*)inst_start, (const float*)x2, (const int16_t*)cells,
         (const int8_t*)route, (float*)out, nt_pad, tps, G, nw, GS);
   else
-    gstream_final_kernel<false><<<(unsigned)blocks, kThreads, 0, s>>>(
+    gstream_final_kernel<false, float><<<(unsigned)blocks, kThreads, 0, s>>>(
         (const int32_t*)step_meta, (const int32_t*)tile_bases,
         (const int32_t*)inst_start, (const float*)x2, (const int16_t*)cells,
         (const int8_t*)route, (float*)out, nt_pad, tps, G, nw, GS);
+  return (int)cudaGetLastError();
+}
+
+// f64: double positions and y, legacy scheme (step-level window bases).
+extern "C" int gstream_final_f64_launch(const void* step_meta,
+                                        const void* inst_start,
+                                        const void* x2, const void* cells,
+                                        const void* route, void* out,
+                                        long long nt_pad, int tps, int G,
+                                        int nw, void* stream) {
+  if (nt_pad == 0) return 0;
+  const long long blocks = (nt_pad + kTilesPerBlock - 1) / kTilesPerBlock;
+  gstream_final_kernel<false, double>
+      <<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+          (const int32_t*)step_meta, nullptr, (const int32_t*)inst_start,
+          (const double*)x2, (const int16_t*)cells, (const int8_t*)route,
+          (double*)out, nt_pad, tps, G, nw, 0);
   return (int)cudaGetLastError();
 }

@@ -1,14 +1,23 @@
 // Classic GStream forward for Hopper (sm_90a): per-chunk partial sums of
 // y = A @ x over a GStream pack (sparsetpu_torch/pack/gather_stream.py).
 //
-// Replaces two TPU kernels of sparsetpu/kernels/spmv_pallas.py, both
-// launched by _gstream_chunk_sums through pl.pallas_call:
-//   _spmv_kernel      (GL = 0): each step gathers over the G groups of its
-//                     x window (every classic device, every F level);
-//   _spmv_kernel_v2   (GL > 0): each tile gathers over GL groups at its
-//                     own base tile_base[k] inside the window.
-// One template covers both (kTileBase), and the value type (f32, or bf16
-// in the bf16 value mode, widened to f32 before the multiply).
+// Replaces three TPU kernels, each launched through pl.pallas_call:
+//   sparsetpu/kernels/spmv_pallas.py:_spmv_kernel     (GL = 0, launched by
+//       _gstream_chunk_sums): each step gathers over the G groups of its x
+//       window (every classic device, every F level);
+//   sparsetpu/kernels/spmv_pallas.py:_spmv_kernel_v2  (GL > 0, the same
+//       launcher): each tile gathers over GL groups at its own base
+//       tile_base[k] inside the window;
+//   sparsetpu/kernels/f64emu.py:_df64_spmv_kernel     (f64, launched by
+//       _df64_chunk_sums): the window scheme on the f64 device's pack, whose
+//       TPU kernel carries values, x and sums as (hi, lo) float pairs with
+//       TwoProd products and double-float add trees.
+// One template covers all three: kTileBase, and the value type V (f32;
+// bf16 in the bf16 value mode, widened to f32 before the multiply; or
+// double, the f64 device's joined hi + lo plane).  x, the sums and the
+// output are Real<V>: float, or double for double values, so the f64
+// kernel multiplies and adds in native FP64 (entry point
+// gstream_spmv_f64_launch; window scheme only, as the TPU's df64 kernel).
 //
 // Slot (s, l) of tile k, in step i = k / T, with the int16 meta stream
 // meta = cell << 7 | route:
@@ -21,11 +30,11 @@
 // The wrapper checks on the host that every staged window lies inside x2
 // (step_window, tile_base), so every address stays in its buffer.
 //
-// What bounds it on the card: the packed stream, read once: 4 B (f32) or
-// 2 B (bf16) of value plus 2 B of meta per slot, and 4 B per output chunk
-// sum written.  The second meta read hits the same 256-byte row the warp
-// just loaded (L1), and the x gathers stay inside one window of at most
-// 32768 columns (128 KB), which L2 holds.
+// What bounds it on the card: the packed stream, read once: 4 B (f32),
+// 2 B (bf16) or 8 B (f64) of value plus 2 B of meta per slot, and 4 B (8 B
+// in f64) per output chunk sum written.  The second meta read hits the same
+// 256-byte row the warp just loaded (L1), and the x gathers stay inside one
+// window of at most 32768 columns (128 KB, 256 KB in f64), which L2 holds.
 //
 // Design, simple first: nothing carries from one step to the next (the
 // TPU walks steps in order only to pipeline its DMA), so each thread owns
@@ -49,6 +58,12 @@ __device__ __forceinline__ float widen(float v) { return v; }
 __device__ __forceinline__ float widen(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ double widen(double v) { return v; }
+
+// the type of x, the sums and the output for values of type V
+template <typename V> struct RealOf { using type = float; };
+template <> struct RealOf<double> { using type = double; };
+template <typename V> using Real = typename RealOf<V>::type;
 
 template <typename V, bool kTileBase>
 __global__ void __launch_bounds__(kThreads)
@@ -56,7 +71,8 @@ gstream_spmv_kernel(const V* __restrict__ values,
                     const int16_t* __restrict__ meta,
                     const int32_t* __restrict__ step_window,
                     const int32_t* __restrict__ tile_base,
-                    const float* __restrict__ x2, float* __restrict__ out,
+                    const Real<V>* __restrict__ x2,
+                    Real<V>* __restrict__ out,
                     long long n_tiles, int T, int G, int GL, int P) {
   const long long k =
       (long long)blockIdx.x * kTilesPerBlock + threadIdx.x / kLanes;
@@ -66,17 +82,18 @@ gstream_spmv_kernel(const V* __restrict__ values,
   long long xbase = (long long)kChunk * G * step_window[k / T];
   if (kTileBase) xbase += (long long)kChunk * tile_base[k];
   const int Q = kChunk / P;
-  float sum = 0.f;
+  Real<V> sum = 0;
 #pragma unroll
   for (int s = 0; s < kChunk; ++s) {
     const long long row = (k * kChunk + s) * kLanes;
     const int j = meta[row + l] & 127;
     const int c = (meta[row + j] & 0x7FFF) >> 7;
-    const float xv = (c >> 3) < groups ? x2[(xbase + c) * kLanes + j] : 0.f;
+    const Real<V> xv =
+        (c >> 3) < groups ? x2[(xbase + c) * kLanes + j] : Real<V>(0);
     sum += widen(values[row + l]) * xv;
     if ((s + 1) % Q == 0) {
       out[(k * P + s / Q) * kLanes + l] = sum;
-      sum = 0.f;
+      sum = 0;
     }
   }
 }
@@ -90,8 +107,8 @@ int launch(const void* values, const void* meta, const void* step_window,
   gstream_spmv_kernel<V, kTileBase><<<(unsigned)blocks, kThreads, 0,
                                       stream>>>(
       (const V*)values, (const int16_t*)meta, (const int32_t*)step_window,
-      (const int32_t*)tile_base, (const float*)x2, (float*)out, n_tiles, T,
-      G, GL, P);
+      (const int32_t*)tile_base, (const Real<V>*)x2, (Real<V>*)out, n_tiles,
+      T, G, GL, P);
   return (int)cudaGetLastError();
 }
 
@@ -118,4 +135,15 @@ extern "C" int gstream_spmv_launch(const void* values, int value_bf16,
                                   out, n_tiles, T, G, GL, P, s)
             : launch<float, false>(values, meta, step_window, tile_base, x2,
                                    out, n_tiles, T, G, GL, P, s);
+}
+
+// f64: double values, x2 and out, window scheme (G groups, no tile base).
+extern "C" int gstream_spmv_f64_launch(const void* values, const void* meta,
+                                       const void* step_window,
+                                       const void* x2, void* out,
+                                       long long n_tiles, int T, int G, int P,
+                                       void* stream) {
+  if (n_tiles == 0) return 0;
+  return launch<double, false>(values, meta, step_window, nullptr, x2, out,
+                               n_tiles, T, G, 0, P, (cudaStream_t)stream);
 }

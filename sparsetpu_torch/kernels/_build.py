@@ -1,5 +1,9 @@
 """Build the port's CUDA sources into one shared library and load it.
 
+The fused SpMV, the forward, the k-plane forward and the final template
+their kernels on the real type: one source holds a kernel's f32 and f64
+(native FP64) forms, each behind its own entry point.
+
 ``nvcc`` compiles ``sparsetpu_torch/csrc/*.cu`` for ``sm_90a`` into
 ``build/sparsetpu_torch/`` beside the package, at first use: one compiler
 per source, all at once, then one link.  The library
@@ -118,6 +122,15 @@ def library() -> _Library:
     lib.gstream_final_multi_launch.restype = i
     lib.gstream_final_multi_launch.argtypes = [i] + [p] * 7 + [ll] \
         + [i] * 5 + [p]
+    # f64 (native FP64) entry points
+    lib.fused_spmv_f64_launch.restype = i
+    lib.fused_spmv_f64_launch.argtypes = [p] * 13 + [i] * 11 + [p]
+    lib.gstream_spmv_f64_launch.restype = i
+    lib.gstream_spmv_f64_launch.argtypes = [p] * 5 + [ll] + [i] * 3 + [p]
+    lib.gstream_final_f64_launch.restype = i
+    lib.gstream_final_f64_launch.argtypes = [p] * 6 + [ll] + [i] * 3 + [p]
+    lib.gstream_spmm_f64_launch.restype = i
+    lib.gstream_spmm_f64_launch.argtypes = [p] * 5 + [ll] + [i] * 4 + [p]
     lib.sparsetpu_error_string.restype = ctypes.c_char_p
     lib.sparsetpu_error_string.argtypes = [i]
     _LIBRARY.lib, _LIBRARY.path = lib, path

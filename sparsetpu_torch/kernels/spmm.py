@@ -9,7 +9,11 @@ each final slot once for up to 8 planes (``csrc/gstream_final_multi.cu``).
 Layout: X, the chunk sums and the final's grid are row-major (rows, k), so
 the k values of one column, position or row are contiguous; Y is (nr_rows,
 k).  (The JAX package keeps (k, rows/128, 128) planes: its test compares
-``Y``.)  X and every sum stay f32, in the bf16 value mode too.
+``Y``.)  X and every sum stay f32, in the bf16 value mode too; on the f64
+device (float64 values) they are float64, the forward runs
+``gstream_chunk_sums_multi_f64`` and each plane finishes through the
+device's own f64 final (there is no k-plane f64 final, as in the JAX
+package's ``spmm_df64``).
 
 Each wrapper runs its plain PyTorch version (``..._reference``) for tensors
 on the CPU and launches its kernel (or raises) for tensors on a CUDA
@@ -38,14 +42,14 @@ def gstream_chunk_sums_multi_reference(values, meta, step_window, X, *,
                                        tile_base=None) -> torch.Tensor:
     """Plain PyTorch version of the k-plane forward, over all tiles and
     planes at once.  X row-major (padded_cols, k); returns the chunk sums,
-    row-major (n_tiles*P*128, k) f32."""
+    row-major (n_tiles*P*128, k), in X's real type."""
     n_tiles = _check_forward(values, meta, step_window, tile_base, X, T=T,
                              G=G, P=P, GL=GL, multi=True)
     k = X.shape[1]
     idx, ok = forward_gather_index(meta, step_window, T=T, G=G, GL=GL,
                                    tile_base=tile_base)
     xv = torch.where(ok.unsqueeze(-1), X[idx], 0.0)
-    prod = values.view(-1, CHUNK, LANES, 1).float() * xv
+    prod = values.view(-1, CHUNK, LANES, 1).to(X.dtype) * xv
     return prod.view(n_tiles, P, CHUNK // P, LANES, k).sum(2).view(-1, k)
 
 
@@ -57,7 +61,12 @@ def gstream_chunk_sums_multi(values, meta, step_window, X, *, T: int, G: int,
     On CUDA tensors it launches ``csrc/gstream_spmm.cu`` on the current
     stream (or raises); on CPU tensors it runs
     ``gstream_chunk_sums_multi_reference``.
-    ``gstream_chunk_sums_multi.launches`` counts launches."""
+    ``gstream_chunk_sums_multi.launches`` counts launches.  f64 values go
+    to ``gstream_chunk_sums_multi_f64``."""
+    if values.dtype == torch.float64:
+        return gstream_chunk_sums_multi_f64(values, meta, step_window, X,
+                                            T=T, G=G, P=P, GL=GL,
+                                            tile_base=tile_base)
     if X.device.type == "cpu":
         return gstream_chunk_sums_multi_reference(
             values, meta, step_window, X, T=T, G=G, P=P, GL=GL,
@@ -86,6 +95,47 @@ def gstream_chunk_sums_multi(values, meta, step_window, X, *, T: int, G: int,
 
 
 gstream_chunk_sums_multi.launches = 0
+
+
+def gstream_chunk_sums_multi_f64(values, meta, step_window, X, *, T: int,
+                                 G: int, P: int, GL: int = 0,
+                                 tile_base=None) -> torch.Tensor:
+    """The k-plane forward kernel in native FP64 (window scheme): chunk
+    sums (n_tiles*P*128, k) f64 for f64 values and X.
+
+    On CUDA tensors it launches the f64 form of ``csrc/gstream_spmm.cu``
+    (or raises, also for GL > 0); on CPU tensors it runs
+    ``gstream_chunk_sums_multi_reference``.
+    ``gstream_chunk_sums_multi_f64.launches`` counts launches."""
+    if values.dtype != torch.float64:
+        raise ValueError("gstream_chunk_sums_multi_f64 takes float64 values")
+    if X.device.type == "cpu":
+        return gstream_chunk_sums_multi_reference(
+            values, meta, step_window, X, T=T, G=G, P=P, GL=GL,
+            tile_base=tile_base)
+    if X.device.type != "cuda":
+        raise ValueError(f"gstream_chunk_sums_multi_f64: unsupported device "
+                         f"{X.device}")
+    n_tiles = _check_forward(values, meta, step_window, tile_base, X, T=T,
+                             G=G, P=P, GL=GL, multi=True)
+    k = X.shape[1]
+    lib = library().lib
+    with torch.cuda.device(X.device):
+        out = torch.empty(n_tiles * P * LANES, k, dtype=torch.float64,
+                          device=X.device)
+        stream = torch.cuda.current_stream(X.device).cuda_stream
+        rc = lib.gstream_spmm_f64_launch(
+            ctypes.c_void_p(values.data_ptr()),
+            ctypes.c_void_p(meta.data_ptr()),
+            ctypes.c_void_p(step_window.data_ptr()),
+            ctypes.c_void_p(X.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            n_tiles, T, G, P, k, ctypes.c_void_p(stream))
+    check(lib, rc, "gstream_chunk_sums_multi_f64 launch")
+    gstream_chunk_sums_multi_f64.launches += 1
+    return out
+
+
+gstream_chunk_sums_multi_f64.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -162,14 +212,15 @@ def spmm_gstream(device: GStreamDevice, X) -> torch.Tensor:
     k-plane forward, then the k-plane flat final for a ``_FinalLevelV2``
     with no F levels, the k-plane legacy final for a ``_FinalLevel`` with
     no F levels, and otherwise each plane through the device's own finish
-    (F levels, ``_FinalLevelMulti``, the segment-sum route).  On a
-    GL-pinned pack the forward adds the per-tile bases, which the JAX
-    kernel leaves out."""
+    (F levels, ``_FinalLevelMulti``, the segment-sum route, and every final
+    of the f64 device).  On a GL-pinned pack the forward adds the per-tile
+    bases, which the JAX kernel leaves out."""
     if not isinstance(device, GStreamDevice):
         raise TypeError(f"spmm_gstream needs a GStreamDevice, got "
                         f"{type(device).__name__}")
     cs = device.stream.forward_multi(device.prepare_x_multi(X))
-    if isinstance(device.final, FinalDevice) and not len(device.flevels):
+    if isinstance(device.final, FinalDevice) and not len(device.flevels) \
+            and cs.dtype == torch.float32:
         return device.final.apply_multi(cs)
     return torch.stack([device.finish_vec(cs[:, kk].contiguous())
                         for kk in range(cs.shape[1])], dim=1)

@@ -1,5 +1,6 @@
 """Fused resident-x SpMV and SpMM on the card (counterpart of
-``sparsetpu/kernels/spmv_fused.py:337-474``).
+``sparsetpu/kernels/spmv_fused.py:337-474``), and f64 SpMV on the same
+layout (``DF64FusedDevice``, counterpart of ``spmv_fused.py:672-803``).
 
 ``FusedDevice`` holds the fused pack (``sparsetpu/pack/fused.py``, the very
 arrays the JAX ``FusedDevice`` uploads) as buffers and runs y = A @ x as one
@@ -9,7 +10,9 @@ with one kernel for all k columns (``csrc/fused_spmm.cu``), X, the blocks
 and Y row-major.  ``fused_spmv`` and ``fused_spmm`` are the kernels'
 wrappers; ``fused_spmv_reference`` and ``fused_spmm_reference`` are the
 same functions in plain PyTorch, used for tensors on the CPU and for
-comparisons on the card.
+comparisons on the card.  ``fused_spmv_f64`` is the fused kernel in native
+FP64 (the f32 wrapper hands it f64 inputs); its plain version is
+``fused_spmv_reference``, which runs in the inputs' real type.
 """
 
 from __future__ import annotations
@@ -30,8 +33,12 @@ STRIPE = _host.STRIPE
 # the JAX package's SpMM budget (a TPU VMEM figure,
 # ``sparsetpu/kernels/spmv_fused.py:279``): the CPU routes by it
 SPMM_PLANE_BYTES_MAX = 12 << 20
+# the JAX package's f64 column limit (``spmv_fused.py:485``): above it the
+# f64 matrix goes to the classic f64 device, as there
+MAX_RESIDENT_COLS_DF64 = 700_000
 
-# (name, dtype) of each kernel input, in the C entry point's order
+# (name, dtype) of each kernel input, in the C entry point's order; the
+# values are float64 on the f64 device
 _KERNEL_INPUTS = (
     ("values", torch.float32), ("meta_i1", torch.int8),
     ("meta_rt", torch.int8), ("tile_base", torch.int32),
@@ -51,9 +58,12 @@ def _check_inputs(t: dict, x2: torch.Tensor, *, T, GLW, P, F1_max, F2_max,
                   F1S, GX=None) -> tuple:
     """Dtype, device, contiguity and shape checks shared by the kernels and
     their plain versions; returns (n_steps, F1A, F2A).  With ``GX`` given,
-    x2 is the SpMM's X, (GX*8*128, k)."""
+    x2 is the SpMM's X, (GX*8*128, k).  The values and x2 are both f32, or
+    both f64."""
     dev = x2.device
-    for name, dtype in _KERNEL_INPUTS + (("x2", torch.float32),):
+    real = torch.float64 if t["values"].dtype == torch.float64 \
+        else torch.float32
+    for name, dtype in _KERNEL_INPUTS[1:] + (("values", real), ("x2", real)):
         a = x2 if name == "x2" else t[name]
         if a.dtype != dtype or a.device != dev or not a.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous {dtype} tensor "
@@ -104,8 +114,9 @@ def _reference(t: dict, X: torch.Tensor, n_steps: int, F1A: int, F2A: int,
                fin_direct) -> torch.Tensor:
     """The fused kernels' function in plain PyTorch, over all steps and
     planes at once: gather, sum over Q, gather, ``index_add_``.  X is
-    row-major (cols, k); returns the slab blocks (n_slabs*OBp*128, k)."""
-    dev, k = X.device, X.shape[1]
+    row-major (cols, k); returns the slab blocks (n_slabs*OBp*128, k), in
+    X's real type."""
+    dev, k, real = X.device, X.shape[1], X.dtype
     SR = T * P
     # forward: slot (s, l) reads X[(8*tile_base + cell(i1[s, j]))*128 + j]
     i1 = t["meta_i1"].view(-1, CHUNK, LANES).long()
@@ -125,12 +136,12 @@ def _reference(t: dict, X: torch.Tensor, n_steps: int, F1A: int, F2A: int,
         got = torch.gather(src.reshape(n_steps, rows * LANES, k), 1,
                            idx.expand(-1, -1, k)).view(*c.shape, k)
         return torch.where((c >= 0).unsqueeze(-1), got,
-                           torch.zeros((), device=dev))
+                           torch.zeros((), dtype=real, device=dev))
 
     if fin_direct:
         src, rows = scratch, SR
     else:
-        src = torch.zeros(n_steps, F1S, LANES, k, device=dev)
+        src = torch.zeros(n_steps, F1S, LANES, k, dtype=real, device=dev)
         src[:, :F1_max] = finish(scratch, SR, "fin1", F1_max, F1A).sum(2)
         rows = F1S
     add = finish(src, rows, "fin2", F2_max, F2A)
@@ -139,7 +150,7 @@ def _reference(t: dict, X: torch.Tensor, n_steps: int, F1A: int, F2A: int,
     dest = (t["step_slab"].long().view(-1, 1, 1, 1) * OBp * LANES
             + (CHUNK * t["fin2_group"].long().view(n_steps, F2_max, 1, 1)
                + sub) * LANES + lane)
-    out = torch.zeros(n_slabs * OBp * LANES, k, device=dev)
+    out = torch.zeros(n_slabs * OBp * LANES, k, dtype=real, device=dev)
     return out.index_add_(0, dest.reshape(-1), add.reshape(-1, k))
 
 
@@ -150,7 +161,7 @@ def fused_spmv_reference(values, meta_i1, meta_rt, tile_base, fin1_i1,
                          fin_direct: int) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel, over all steps at once:
     gather, sum over Q, gather, ``index_add_``.  Returns the slab blocks,
-    (n_slabs*OBp, 128) f32."""
+    (n_slabs*OBp, 128), f32 (f64 for f64 values and x2)."""
     t = _named(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
                fin2_i1, fin2_rt, fin2_group, step_slab)
     kw = dict(T=T, GLW=GLW, P=P, F1_max=F1_max, F2_max=F2_max, F1S=F1S)
@@ -168,7 +179,14 @@ def fused_spmv(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
 
     On CUDA tensors it launches ``csrc/fused_spmv.cu`` on the current
     stream (or raises); on CPU tensors it runs ``fused_spmv_reference``.
-    ``fused_spmv.launches`` counts kernel launches."""
+    ``fused_spmv.launches`` counts kernel launches.  f64 values go to
+    ``fused_spmv_f64``."""
+    if values.dtype == torch.float64:
+        return fused_spmv_f64(
+            values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt, fin2_i1,
+            fin2_rt, fin2_group, step_slab, x2, T=T, GLW=GLW, P=P,
+            F1_max=F1_max, F2_max=F2_max, F1S=F1S, OBp=OBp,
+            n_slabs=n_slabs, fin_direct=fin_direct)
     if x2.device.type == "cpu":
         return fused_spmv_reference(
             values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt, fin2_i1,
@@ -197,6 +215,73 @@ def fused_spmv(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
 
 
 fused_spmv.launches = 0
+
+
+def f64_scratch_fits(T: int, P: int, F1S: int, fin_direct: int,
+                     device: torch.device) -> bool:
+    """True when the f64 kernel's two scratch planes, (T*P + F1S) x 128
+    doubles (T*P alone with fin_direct), fit the shared memory a block of
+    ``device`` may opt in to; else scratch2 goes to a global workspace."""
+    need = (T * P + (0 if fin_direct else F1S)) * LANES * 8
+    return need <= card_limits(device)[1]
+
+
+def _fused_spmv_f64_launch(t: dict, x2: torch.Tensor, *, workspace: bool,
+                           T, GLW, P, F1_max, F2_max, F1S, OBp, n_slabs,
+                           fin_direct) -> torch.Tensor:
+    """Launch the f64 kernel on f64 CUDA inputs ``t`` (by name) and x2,
+    with scratch2 in a global workspace when ``workspace``."""
+    n_steps, F1A, F2A = _check_inputs(t, x2, T=T, GLW=GLW, P=P,
+                                      F1_max=F1_max, F2_max=F2_max, F1S=F1S)
+    lib = library().lib
+    with torch.cuda.device(x2.device):
+        out = torch.zeros(n_slabs * OBp, LANES, dtype=torch.float64,
+                          device=x2.device)
+        ws = (torch.empty(max(n_steps, 1) * F1S * LANES, dtype=torch.float64,
+                          device=x2.device)
+              if workspace and not fin_direct else None)
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        rc = lib.fused_spmv_f64_launch(
+            *(ctypes.c_void_p(t[name].data_ptr())
+              for name, _ in _KERNEL_INPUTS),
+            ctypes.c_void_p(x2.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(ws.data_ptr() if ws is not None else 0),
+            n_steps, T, GLW, P, F1_max, F2_max, F1A, F2A, F1S, OBp,
+            fin_direct, ctypes.c_void_p(stream))
+    check(lib, rc, "fused_spmv_f64 launch")
+    fused_spmv_f64.launches += 1
+    return out
+
+
+def fused_spmv_f64(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
+                   fin2_i1, fin2_rt, fin2_group, step_slab, x2, *, T: int,
+                   GLW: int, P: int, F1_max: int, F2_max: int, F1S: int,
+                   OBp: int, n_slabs: int, fin_direct: int) -> torch.Tensor:
+    """The fused kernel in native FP64: slab blocks (n_slabs*OBp, 128) f64
+    of y = A @ x, for f64 values and x2.
+
+    On CUDA tensors it launches the f64 form of ``csrc/fused_spmv.cu`` (or
+    raises), with scratch2 in shared memory where the card's opt-in holds
+    both scratch planes and in a global workspace where it does not; on CPU
+    tensors it runs ``fused_spmv_reference``.  ``fused_spmv_f64.launches``
+    counts kernel launches."""
+    kw = dict(T=T, GLW=GLW, P=P, F1_max=F1_max, F2_max=F2_max, F1S=F1S,
+              OBp=OBp, n_slabs=n_slabs, fin_direct=fin_direct)
+    if values.dtype != torch.float64:
+        raise ValueError("fused_spmv_f64 takes float64 values and x2")
+    if x2.device.type == "cpu":
+        return fused_spmv_reference(values, meta_i1, meta_rt, tile_base,
+                                    fin1_i1, fin1_rt, fin2_i1, fin2_rt,
+                                    fin2_group, step_slab, x2, **kw)
+    if x2.device.type != "cuda":
+        raise ValueError(f"fused_spmv_f64: unsupported device {x2.device}")
+    t = _named(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
+               fin2_i1, fin2_rt, fin2_group, step_slab)
+    fits = f64_scratch_fits(T, P, F1S, fin_direct, x2.device)
+    return _fused_spmv_f64_launch(t, x2, workspace=not fits, **kw)
+
+
+fused_spmv_f64.launches = 0
 
 
 def card_limits(device: torch.device) -> tuple:
@@ -235,6 +320,9 @@ def fused_spmm(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
     shared memory holds; on CPU tensors it runs ``fused_spmm_reference``.
     ``fused_spmm.launches`` counts kernel launches."""
     kw = dict(T=T, GLW=GLW, P=P, F1_max=F1_max, F2_max=F2_max, F1S=F1S)
+    if values.dtype == torch.float64:
+        raise ValueError("fused_spmm: there is no f64 SpMM kernel (the f64 "
+                         "device runs one fused SpMV a column)")
     if X.device.type == "cpu":
         return fused_spmm_reference(
             values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt, fin2_i1,
@@ -336,9 +424,14 @@ class FusedDevice(nn.Module):
     def device(self) -> torch.device:
         return self.values.device
 
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.values.dtype
+
     def prepare_x(self, x) -> torch.Tensor:
-        """x (nr_cols,) -> the resident layout (GX*8, 128) f32."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        """x (nr_cols,) -> the resident layout (GX*8, 128) in the values'
+        type (f32, or f64 on the f64 device)."""
+        x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
         if tuple(x.shape) != (self.meta.nr_cols,):
             raise ValueError(
                 f"x has shape {tuple(x.shape)}, expected "
@@ -423,3 +516,92 @@ class FusedDevice(nn.Module):
             Y.index_add_(0, self.spill_row,
                          self.spill_val[:, None] * Xp[self.spill_col])
         return Y
+
+
+# -- f64 (DOUBLE=1) on the fused layout ---------------------------------------
+
+def _check_planes(packed_hi, packed_lo) -> None:
+    """The hi and lo packs must share every metadata array: the pack
+    engine is value-agnostic (``spmv_fused.py:682-686`` checks the same)."""
+    for name in ("meta_i1", "meta_rt", "tile_base", "fin1_i1", "fin1_rt",
+                 "fin2_i1", "fin2_rt", "fin2_group", "step_slab",
+                 "slab_bounds", "spill_row", "spill_col"):
+        if not np.array_equal(getattr(packed_hi, name),
+                              getattr(packed_lo, name)):
+            raise ValueError(f"hi/lo fused packs diverged ({name}): the pack "
+                             f"engine must be value-agnostic")
+    if packed_hi.values.shape != packed_lo.values.shape:
+        raise ValueError("hi/lo fused packs diverged (values shape)")
+
+
+def pack_fused_df64(matrix, **kw):
+    """The fused packs (hi, lo) of an f64 CSR matrix, the hi and lo value
+    planes packed as two f32 packs with the same Q/GLW/T
+    (``spmv_fused.py:781-803``); None when the layout does not apply: more
+    than ``MAX_RESIDENT_COLS_DF64`` columns, or either pack is None.
+    Raises ``ValueError`` if the two packs' metadata diverge."""
+    from .f64emu import split_planes      # f64emu imports this module
+    if matrix.nr_cols > MAX_RESIDENT_COLS_DF64:
+        return None
+    m_hi, m_lo = split_planes(matrix)
+    ph = _host.pack_fused(m_hi, **kw)
+    if ph is None:
+        return None
+    pl = _host.pack_fused(m_lo, Q=ph.Q, GLW=ph.GLW, T=ph.T, **{
+        k: v for k, v in kw.items() if k not in ("Q", "GLW", "T")})
+    if pl is None:
+        return None
+    _check_planes(ph, pl)
+    return ph, pl
+
+
+class DF64FusedDevice(FusedDevice):
+    """f64 SpMV on the fused layout (counterpart of the JAX package's
+    ``DF64FusedDevice``, ``spmv_fused.py:672-778``).  The JAX device keeps
+    two f32 value planes and (hi, lo) x planes because the TPU has no
+    usable FP64; here the planes are joined at upload into one float64
+    value plane, x stays float64, and the kernel (``fused_spmv_f64``)
+    computes in native FP64.  ``spmv`` returns a float64 y; the spills are
+    added with ``index_add_`` (the JAX device's ``set`` keeps one spill
+    per row: ROADMAP Queue 3).  Build it with ``from_packed``."""
+
+    @classmethod
+    def from_packed(cls, packed_hi, packed_lo, device) -> "DF64FusedDevice":
+        """Upload the (hi, lo) ``FusedMatrix`` pair (from either package's
+        ``pack_fused``) to ``device``: the metadata once, the values and
+        the spill values as hi + lo in float64 (padded slots are 0 in
+        both)."""
+        from .f64emu import join_f64          # f64emu imports this module
+        dev = require_device(device)
+        _check_planes(packed_hi, packed_lo)
+        _check_pack(packed_hi)
+
+        def up(a, dtype=None):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+        buffers = {name: up(getattr(packed_hi, name), dtype)
+                   for name, dtype in _KERNEL_INPUTS}
+        buffers["values"] = up(join_f64(packed_hi.values, packed_lo.values))
+        if packed_hi.spill_row.shape[0]:
+            buffers["spill_row"] = up(packed_hi.spill_row, torch.int64)
+            buffers["spill_col"] = up(packed_hi.spill_col, torch.int64)
+            buffers["spill_val"] = up(join_f64(packed_hi.spill_val,
+                                               packed_lo.spill_val))
+        return cls(packed_hi, buffers)
+
+    def spmm_applicable(self, k: int) -> bool:
+        """No k-plane f64 kernel: ``spmm`` runs one SpMV a column."""
+        return False
+
+    def spmm(self, X, x_is_packed: bool = False) -> torch.Tensor:
+        """Y = A @ X (nr_rows, k) float64: one fused f64 SpMV a column, as
+        the JAX package's ``spmm_df64`` does on this device
+        (``f64emu.py:396-412``)."""
+        if x_is_packed:
+            raise ValueError("DF64FusedDevice.spmm takes X unpacked")
+        X = torch.as_tensor(X, dtype=torch.float64, device=self.device)
+        if X.dim() != 2 or X.shape[0] != self.meta.nr_cols:
+            raise ValueError(f"X has shape {tuple(X.shape)}, expected "
+                             f"({self.meta.nr_cols}, k)")
+        return torch.stack([self.spmv(X[:, j]) for j in range(X.shape[1])],
+                           dim=1)

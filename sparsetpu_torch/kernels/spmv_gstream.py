@@ -20,6 +20,12 @@ or, when no final could be built, a segment-sum of the position vector
 its plain PyTorch version (``gstream_chunk_sums_reference``,
 ``final_gather_reference``) for tensors on the CPU, and launches its kernel
 (or raises) for tensors on a CUDA device.
+
+The f64 device (``f64emu.DF64GStreamDevice``) is this device with float64
+values, positions and y: the wrappers hand float64 inputs to their native
+FP64 forms, ``gstream_chunk_sums_f64`` (window scheme) and
+``final_gather_f64`` (legacy scheme), whose plain versions are the same
+``..._reference`` functions, which run in the inputs' real type.
 """
 
 from __future__ import annotations
@@ -62,12 +68,18 @@ def _check_forward(values, meta, step_window, tile_base, x2, *, T, G, P,
                    GL, multi=False) -> int:
     """Dtype, device, contiguity and shape checks shared by the forward
     kernels and their plain versions; returns the tile count.  ``multi``:
-    x2 is the SpMM's X, row-major (padded_cols, k)."""
+    x2 is the SpMM's X, row-major (padded_cols, k).  Values f32 or bf16
+    take an f32 x2; f64 values an f64 x2, and GL = 0 only (the f64 device's
+    pack; the TPU's df64 kernels add no tile base)."""
     dev = x2.device
-    _require(values, "values", (torch.float32, torch.bfloat16), dev)
+    _require(values, "values", (torch.float32, torch.bfloat16,
+                                torch.float64), dev)
     _require(meta, "meta", (torch.int16,), dev)
     _require(step_window, "step_window", (torch.int32,), dev)
-    _require(x2, "x2", (torch.float32,), dev)
+    f64 = values.dtype == torch.float64
+    _require(x2, "x2", (torch.float64 if f64 else torch.float32,), dev)
+    if f64 and GL:
+        raise ValueError(f"the f64 forward takes GL = 0 only (got GL={GL})")
     if P not in (1, 2, 4, 8) or T < 1 or not 1 <= G <= 32:
         raise ValueError(f"unsupported layout T={T} G={G} P={P}")
     n_tiles = step_window.shape[0] * T
@@ -110,13 +122,13 @@ def gstream_chunk_sums_reference(values, meta, step_window, x2, *, T: int,
                                  tile_base=None) -> torch.Tensor:
     """Plain PyTorch version of the forward kernel, over all tiles at once:
     decode, gather, multiply, sum over Q.  Returns the chunk sums,
-    (n_tiles*P, 128) f32."""
+    (n_tiles*P, 128), in x2's real type."""
     n_tiles = _check_forward(values, meta, step_window, tile_base, x2, T=T,
                              G=G, P=P, GL=GL)
     idx, ok = forward_gather_index(meta, step_window, T=T, G=G, GL=GL,
                                    tile_base=tile_base)
     xv = torch.where(ok, x2.reshape(-1)[idx], 0.0)
-    prod = values.view(-1, CHUNK, LANES).float() * xv
+    prod = values.view(-1, CHUNK, LANES).to(x2.dtype) * xv
     return prod.view(n_tiles, P, CHUNK // P, LANES).sum(2).view(-1, LANES)
 
 
@@ -127,7 +139,11 @@ def gstream_chunk_sums(values, meta, step_window, x2, *, T: int, G: int,
     On CUDA tensors it launches ``csrc/gstream_spmv.cu`` on the current
     stream (or raises); on CPU tensors it runs
     ``gstream_chunk_sums_reference``.  ``gstream_chunk_sums.launches``
-    counts launches by scheme: ``"window"`` (GL = 0) and ``"tile_base"``."""
+    counts launches by scheme: ``"window"`` (GL = 0) and ``"tile_base"``.
+    f64 values go to ``gstream_chunk_sums_f64``."""
+    if values.dtype == torch.float64:
+        return gstream_chunk_sums_f64(values, meta, step_window, x2, T=T,
+                                      G=G, P=P, GL=GL, tile_base=tile_base)
     if x2.device.type == "cpu":
         return gstream_chunk_sums_reference(values, meta, step_window, x2,
                                             T=T, G=G, P=P, GL=GL,
@@ -157,21 +173,67 @@ def gstream_chunk_sums(values, meta, step_window, x2, *, T: int, G: int,
 gstream_chunk_sums.launches = collections.Counter()
 
 
-class ForwardStream(nn.Module):
-    """One GStream pack on the device: values (f32, or bf16 in the bf16
-    value mode), the int16 meta, ``step_window`` and, when GL > 0,
-    ``tile_base``; ``forward(x2)`` gives its chunk sums."""
+def gstream_chunk_sums_f64(values, meta, step_window, x2, *, T: int, G: int,
+                           P: int, GL: int = 0,
+                           tile_base=None) -> torch.Tensor:
+    """The forward kernel in native FP64 (window scheme): chunk sums
+    (n_tiles*P, 128) f64 for f64 values and x2.
 
-    def __init__(self, p: GStreamMatrix, device, value_dtype=None):
+    On CUDA tensors it launches the f64 form of ``csrc/gstream_spmv.cu``
+    (or raises, also for GL > 0); on CPU tensors it runs
+    ``gstream_chunk_sums_reference``.  ``gstream_chunk_sums_f64.launches``
+    counts launches."""
+    if values.dtype != torch.float64:
+        raise ValueError("gstream_chunk_sums_f64 takes float64 values")
+    if x2.device.type == "cpu":
+        return gstream_chunk_sums_reference(values, meta, step_window, x2,
+                                            T=T, G=G, P=P, GL=GL,
+                                            tile_base=tile_base)
+    if x2.device.type != "cuda":
+        raise ValueError(f"gstream_chunk_sums_f64: unsupported device "
+                         f"{x2.device}")
+    n_tiles = _check_forward(values, meta, step_window, tile_base, x2, T=T,
+                             G=G, P=P, GL=GL)
+    lib = library().lib
+    with torch.cuda.device(x2.device):
+        out = torch.empty(n_tiles * P, LANES, dtype=torch.float64,
+                          device=x2.device)
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        rc = lib.gstream_spmv_f64_launch(
+            ctypes.c_void_p(values.data_ptr()),
+            ctypes.c_void_p(meta.data_ptr()),
+            ctypes.c_void_p(step_window.data_ptr()),
+            ctypes.c_void_p(x2.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            n_tiles, T, G, P, ctypes.c_void_p(stream))
+    check(lib, rc, "gstream_chunk_sums_f64 launch")
+    gstream_chunk_sums_f64.launches += 1
+    return out
+
+
+gstream_chunk_sums_f64.launches = 0
+
+
+class ForwardStream(nn.Module):
+    """One GStream pack on the device: values (f32, bf16 in the bf16 value
+    mode, or the f64 device's float64 plane), the int16 meta,
+    ``step_window`` and, when GL > 0, ``tile_base``; ``forward(x2)`` gives
+    its chunk sums.  ``values``, when given, is uploaded in place of
+    ``p.values`` (same shape, its own dtype)."""
+
+    def __init__(self, p: GStreamMatrix, device, value_dtype=None,
+                 values: Optional[np.ndarray] = None):
         super().__init__()
         _check_forward_pack(p)
         dev = require_device(device)
         self.T, self.G, self.P, self.GL = (p.tiles_per_step, p.G, p.planes,
                                            p.GL)
         self.padded_cols = p.padded_cols
-        self.register_buffer("values", torch.from_numpy(
-            np.ascontiguousarray(p.values, np.float32)).to(
-                dev, value_dtype or torch.float32))
+        plane = (np.ascontiguousarray(p.values, np.float32) if values is None
+                 else np.ascontiguousarray(values))
+        if plane.shape != p.values.shape:
+            raise ValueError("values must have the pack's shape")
+        self.register_buffer("values", torch.from_numpy(plane).to(
+            dev, value_dtype))
         self.register_buffer("meta16", torch.from_numpy(
             combine_meta(p.cell_idx, p.route)).to(dev))
         self.register_buffer("step_window", torch.from_numpy(
@@ -232,14 +294,17 @@ def _check_final(step_meta, tile_bases, inst_start, x2, cells, route, *,
                  tps, G, nw, GS, nt_pad, v2, multi=False) -> int:
     """Checks shared by the final kernels and their plain versions; returns
     the instance count.  ``multi``: x2 is the k position planes, row-major
-    (x_pad_rows*128, k)."""
+    (x_pad_rows*128, k).  x2 is f32, or f64 for the legacy one-plane final
+    (the f64 device's)."""
     dev = x2.device
-    for name, a, dt in (("step_meta", step_meta, torch.int32),
-                        ("inst_start", inst_start, torch.int32),
-                        ("x2", x2, torch.float32),
-                        ("cells", cells, torch.int16),
-                        ("route", route, torch.int8)):
-        _require(a, name, (dt,), dev)
+    for name, a, dt in (("step_meta", step_meta, (torch.int32,)),
+                        ("inst_start", inst_start, (torch.int32,)),
+                        ("x2", x2, (torch.float32, torch.float64)),
+                        ("cells", cells, (torch.int16,)),
+                        ("route", route, (torch.int8,))):
+        _require(a, name, dt, dev)
+    if x2.dtype == torch.float64 and (v2 or multi):
+        raise ValueError("the f64 final is the legacy one-plane scheme only")
     n_steps = step_meta.shape[0]
     if tps < 1 or G < 1 or nw < 1 or nt_pad % tps:
         raise ValueError(f"unsupported final tps={tps} G={G} nw={nw} "
@@ -295,14 +360,16 @@ def final_gather_reference(step_meta, tile_bases, inst_start, x2, cells,
     """Plain PyTorch version of the final kernel, over all instances at
     once: decode, gather, sum over the 8 sublanes, then ``index_add_`` of
     each instance into its out block (in instance order, so the first
-    instance's sum is added to 0).  Returns y's grid, (nt_pad, 128) f32."""
+    instance's sum is added to 0).  Returns y's grid, (nt_pad, 128), in
+    x2's real type."""
     n_steps = _check_final(step_meta, tile_bases, inst_start, x2, cells,
                            route, tps=tps, G=G, nw=nw, GS=GS, nt_pad=nt_pad,
                            v2=v2)
     idx, ok = final_gather_index(step_meta, tile_bases, cells, route,
                                  tps=tps, G=G, nw=nw, GS=GS, v2=v2)
     part = torch.where(ok, x2.reshape(-1)[idx], 0.0).sum(2)
-    out = torch.zeros(nt_pad // tps, tps, LANES, device=x2.device)
+    out = torch.zeros(nt_pad // tps, tps, LANES, dtype=x2.dtype,
+                      device=x2.device)
     out.index_add_(0, step_meta[:, nw + 1].long(), part)
     return out.view(nt_pad, LANES)
 
@@ -315,7 +382,11 @@ def final_gather(step_meta, tile_bases, inst_start, x2, cells, route, *,
     On CUDA tensors it launches ``csrc/gstream_final.cu`` on the current
     stream (or raises); on CPU tensors it runs ``final_gather_reference``.
     ``final_gather.launches`` counts launches by scheme: ``"legacy"`` and
-    ``"flat"``."""
+    ``"flat"``.  f64 positions go to ``final_gather_f64``."""
+    if x2.dtype == torch.float64:
+        return final_gather_f64(step_meta, tile_bases, inst_start, x2, cells,
+                                route, tps=tps, G=G, nw=nw, GS=GS,
+                                nt_pad=nt_pad, v2=v2)
     if x2.device.type == "cpu":
         return final_gather_reference(step_meta, tile_bases, inst_start, x2,
                                       cells, route, tps=tps, G=G, nw=nw,
@@ -342,6 +413,46 @@ def final_gather(step_meta, tile_bases, inst_start, x2, cells, route, *,
 
 
 final_gather.launches = collections.Counter()
+
+
+def final_gather_f64(step_meta, tile_bases, inst_start, x2, cells, route, *,
+                     tps: int, G: int, nw: int, GS: int, nt_pad: int,
+                     v2: bool) -> torch.Tensor:
+    """The final kernel in native FP64 (legacy scheme): y's grid
+    (nt_pad, 128) f64 from f64 positions.
+
+    On CUDA tensors it launches the f64 form of ``csrc/gstream_final.cu``
+    (or raises, also for the flat scheme); on CPU tensors it runs
+    ``final_gather_reference``.  ``final_gather_f64.launches`` counts
+    launches."""
+    if x2.dtype != torch.float64:
+        raise ValueError("final_gather_f64 takes float64 positions")
+    if x2.device.type == "cpu":
+        return final_gather_reference(step_meta, tile_bases, inst_start, x2,
+                                      cells, route, tps=tps, G=G, nw=nw,
+                                      GS=GS, nt_pad=nt_pad, v2=v2)
+    if x2.device.type != "cuda":
+        raise ValueError(f"final_gather_f64: unsupported device {x2.device}")
+    _check_final(step_meta, tile_bases, inst_start, x2, cells, route,
+                 tps=tps, G=G, nw=nw, GS=GS, nt_pad=nt_pad, v2=v2)
+    lib = library().lib
+    with torch.cuda.device(x2.device):
+        out = torch.empty(nt_pad, LANES, dtype=torch.float64,
+                          device=x2.device)
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        rc = lib.gstream_final_f64_launch(
+            ctypes.c_void_p(step_meta.data_ptr()),
+            ctypes.c_void_p(inst_start.data_ptr()),
+            ctypes.c_void_p(x2.data_ptr()), ctypes.c_void_p(cells.data_ptr()),
+            ctypes.c_void_p(route.data_ptr()),
+            ctypes.c_void_p(out.data_ptr()), nt_pad, tps, G, nw,
+            ctypes.c_void_p(stream))
+    check(lib, rc, "final_gather_f64 launch")
+    final_gather_f64.launches += 1
+    return out
+
+
+final_gather_f64.launches = 0
 
 
 class FinalDevice(nn.Module):
@@ -500,15 +611,19 @@ class GStreamDevice(nn.Module):
     forward kernel, the F levels and the final level.
 
     ``value_dtype=torch.bfloat16`` uploads the values in bf16 (the "ML
-    precision" mode: half the value stream); x and every sum stay f32."""
+    precision" mode: half the value stream); x and every sum stay f32.
+    ``values`` and ``plan`` replace the pack's value plane and its
+    ``build_finish`` plan (the f64 device passes its float64 plane and a
+    legacy final); float64 values make x, every sum and y float64."""
 
     def __init__(self, packed: GStreamMatrix, device,
-                 value_dtype: Optional[torch.dtype] = None):
+                 value_dtype: Optional[torch.dtype] = None, *,
+                 values: Optional[np.ndarray] = None, plan=None):
         super().__init__()
         dev = require_device(device)
         self.meta = packed
-        self.stream = ForwardStream(packed, dev, value_dtype)
-        plan = build_finish(packed)
+        self.stream = ForwardStream(packed, dev, value_dtype, values)
+        plan = build_finish(packed) if plan is None else plan
         self.plan = plan
         self.flevels = nn.ModuleList(ForwardStream(fp, dev)
                                      for fp in plan.flevels)
@@ -535,10 +650,16 @@ class GStreamDevice(nn.Module):
     def dtype(self) -> torch.dtype:
         return self.stream.values.dtype
 
+    @property
+    def real(self) -> torch.dtype:
+        """The type of x, the sums and y: f64 for f64 values, else f32."""
+        return torch.float64 if self.dtype == torch.float64 \
+            else torch.float32
+
     def prepare_x(self, x) -> torch.Tensor:
         """x (nr_cols,) -> the (padded_cols / 128, 128) stripe matrix,
         zero-padded past nr_cols.  x stays f32 in the bf16 value mode."""
-        x = torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        x = torch.as_tensor(x, dtype=self.real, device=self.device)
         if tuple(x.shape) != (self.meta.nr_cols,):
             raise ValueError(f"x has shape {tuple(x.shape)}, expected "
                              f"({self.meta.nr_cols},)")
@@ -546,9 +667,9 @@ class GStreamDevice(nn.Module):
         return nn.functional.pad(x, (0, pad)).view(-1, STRIPE)
 
     def prepare_x_multi(self, X) -> torch.Tensor:
-        """X (nr_cols, k) -> row-major (padded_cols, k) f32, zero rows past
-        nr_cols (f32 in the bf16 value mode too)."""
-        X = torch.as_tensor(X, dtype=torch.float32, device=self.device)
+        """X (nr_cols, k) -> row-major (padded_cols, k) in the real type,
+        zero rows past nr_cols (f32 in the bf16 value mode too)."""
+        X = torch.as_tensor(X, dtype=self.real, device=self.device)
         if X.dim() != 2 or X.shape[0] != self.meta.nr_cols or \
                 X.shape[1] < 1:
             raise ValueError(f"X has shape {tuple(X.shape)}, expected "

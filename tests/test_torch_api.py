@@ -6,7 +6,8 @@ the heavy-row hybrid, the classic GStream device (wide x, ``block_cols <
 16384``, bf16 values) and row partitions; each case takes the same device
 kind as the JAX package and gives the same y (rtol 1e-5, atol 1e-5 *
 max(1, max|y|): the same f32 terms summed in another order), and ``A @ X``
-its Y.  f64 and SpGEMM still raise ``NotImplementedError``.
+its Y.  f64 configs take the f64 devices (``tests/test_torch_f64.py``);
+SpGEMM still raises ``NotImplementedError``.
 """
 
 import os
@@ -122,13 +123,23 @@ def test_wide_x_raises_where_jax_goes_classic():
     (dict(dtype=np.float32, block_cols=8192), "Queue 1 #4"),
 ])
 def test_unported_devices_raise(cfg, match):
-    """``match`` names the ROADMAP item: f64 still raises naming it; the
-    routes it ported (partitions, block_cols < 16384) take the JAX
-    package's device kinds and give its y."""
+    """(The name dates from before these routes were ported.)  ``match``
+    names the ROADMAP item that ported the route: f64 (#6) takes the f64
+    fused device, as the JAX package does, and a float64 y that meets the
+    gold at the f64 tolerance; partitions and block_cols < 16384 (#4) take
+    the JAX package's device kinds and give its y."""
     m = random_csr(300, 2000, density=0.01, seed=1, dtype=np.float32)
     if match != "Queue 1 #4":
-        with pytest.raises(NotImplementedError, match=match):
-            st.SparseMatrix(m, SpmvConfig(**cfg), device="cpu")
+        from sparsetpu.kernels.spmv_fused import DF64FusedDevice
+        x = np.random.default_rng(5).standard_normal(m.nr_cols)
+        jsm = JaxSparseMatrix(m, SpmvConfig(**cfg), interpret=True)
+        sm = st.SparseMatrix(m, SpmvConfig(**cfg), device="cpu")
+        assert isinstance(jsm._device, DF64FusedDevice)
+        assert type(sm.device_module).__name__ == "DF64FusedDevice"
+        y = sm @ x
+        assert y.dtype == torch.float64
+        tol = default_tolerance(np.float64, m.nr_nzeros / m.nr_rows)
+        assert verification(spmv_gold(m, x), y.numpy(), *tol) == 0
         return
     x = np.random.default_rng(5).standard_normal(m.nr_cols)
     jsm = JaxSparseMatrix(m, SpmvConfig(**cfg), interpret=True)
@@ -227,9 +238,17 @@ def test_cli_random_cpu_passes():
 @pytest.mark.parametrize("flag", [["--double"],
                                   ["--double", "--partitions", "2"]])
 def test_cli_unported_flags_raise(flag):
+    """(The name dates from before f64 was ported.)  ``--double`` runs the
+    f64 devices and passes; with partitions it raises ``ValueError``, as
+    the JAX package's f64 partitions do."""
     from sparsetpu_torch.cli import main
-    with pytest.raises(NotImplementedError):
-        main(["--random", "100x100x0.05", "--device", "cpu", *flag])
+    argv = ["--random", "100x100x0.05", "--device", "cpu", "--repeats", "2",
+            *flag]
+    if "--partitions" in flag:
+        with pytest.raises(ValueError, match="num_partitions"):
+            main(argv)
+    else:
+        assert main(argv) == 0
 
 
 def test_cli_partitions_cpu_passes():

@@ -28,6 +28,7 @@ _JAX_BLOCKED = r"""
 import sys
 sys.modules["jax"] = None          # any jax import now fails
 import numpy as np
+import torch
 import sparsetpu_torch as st
 from sparsetpu_torch import _host
 m = _host.random_csr(700, 3000, density=0.01, seed=4, dtype=np.float32)
@@ -54,6 +55,21 @@ for Y in (st.SparseMatrix(m, device="cpu") @ X,
                             X)):
     for j in range(3):
         assert _host.verification(G[:, j], Y[:, j].numpy(), *tol) == 0
+# f64: the fused and the classic f64 devices, A @ x and A @ X in float64
+from sparsetpu_torch.kernels import f64emu
+m64 = _host.random_csr(700, 3000, density=0.01, seed=4)
+x64 = np.random.default_rng(1).standard_normal(m64.nr_cols)
+tol = _host.default_tolerance(np.float64, m64.nr_nzeros / m64.nr_rows)
+for cfg in (None, _host.SpmvConfig(dtype=np.float64, block_cols=8192)):
+    sm = st.SparseMatrix(m64, cfg, device="cpu")
+    assert sm.device_module.dtype == torch.float64
+    assert _host.verification(_host.spmv_gold(m64, x64),
+                              (sm @ x64).numpy(), *tol) == 0
+    Y = (sm @ X).numpy()
+    G = spmm_gold(m64, X)
+    for j in range(3):
+        assert _host.verification(G[:, j], Y[:, j], *tol) == 0
+assert isinstance(sm.device_module, f64emu.DF64GStreamDevice)
 loaded = [k for k, v in sys.modules.items()
           if v is not None and (k == "jax" or k.startswith("jax."))]
 assert not loaded, loaded
