@@ -67,6 +67,29 @@ max(1, max|ref|), and each f64 y (Y column by column) to the gold at the
 f64 tolerance with 0 errors and at max abs error <= 1e-10 * max(1,
 max|y|).
 
+and BSR SpMV, the solvers and SpGEMM last:
+
+  regimes          BSR SpMV on the JAX tests' banded and random shapes, a
+                   ragged one and the segment-sum route (the BSR kernel and
+                   the legacy final against their plain versions, y against
+                   the gold); ``bicgstab``, ``gmres`` (also through a
+                   breakdown) and ``power_iteration`` once each; ``sm @ m``
+                   and ``sm @ sm`` at the JAX SpGEMM tests' shapes;
+  BSR FEM 72^3     ``BSRDevice.spmv`` on ``csr_to_bsr(fem_poisson_3d(72))``:
+                   the BSR kernel and the legacy final, beside the CSR
+                   route of the same matrix and cuSPARSE;
+  pcg on BSR       ``pcg`` with the Jacobi preconditioner on that operator:
+                   one launch of each kernel an SpMV, b - A x recomputed in
+                   f64 by the gold;
+  cg_df64          ``fem_poisson_3d(72)`` in f64 through ``SparseMatrix``
+                   (the fused f64 device) to 1e-10;
+  SpGEMM           A @ A at the roadNet-CA stand-in: the plan once, then
+                   its numeric phase and C against scipy's product, beside
+                   cuSPARSE's SpGEMM.
+
+The BSR partials are held to their plain version at max abs error <= 1e-5
+* max|plain|.
+
 Each main path is driven once through the entry points a user calls, with
 every kernel's launch count set to 0 just before and read just after; a
 kernel of that path that did not launch fails the run.  Then
@@ -92,6 +115,9 @@ import numpy as np
 RTOL = {"float32": 1e-5, "float64": 1e-12}   # atol: RTOL * max(1, max|y|)
 # an f64 y against the gold: max abs error <= F64_GOLD_REL * max(1, max|y|)
 F64_GOLD_REL = 1e-10
+# BSR partials, kernel vs plain: max abs err <= BSR_REL * max|partials| (128
+# f32 products a row summed in another order)
+BSR_REL = 1e-5
 # H100 SXM data sheet, outside the tensor cores: f32 67, FP64 34 TFLOP/s
 TFLOPS = {"float32": 67.0, "float64": 34.0}
 
@@ -124,6 +150,8 @@ KERNELS = {
                                  "sparsetpu/kernels/f64emu.py:196"),
     "gstream_spmm_f64": ("sparsetpu_torch/csrc/gstream_spmm.cu",
                          "sparsetpu/kernels/f64emu.py:319"),
+    "bsr_partials": ("sparsetpu_torch/csrc/bsr_spmv.cu",
+                     "sparsetpu/kernels/bsr.py:30"),
 }
 
 
@@ -143,6 +171,17 @@ def _agree(yk, yr) -> float:
     if bad or not bool(yk.isfinite().all()):
         raise RuntimeError(f"kernel disagrees with its plain version: "
                            f"{bad} elements, max abs err {err:.3e}")
+    return err
+
+
+def _agree_partials(pk, pr) -> float:
+    """Max abs difference of BSR partials; raises past BSR_REL *
+    max|plain|."""
+    err = (pk - pr).abs().max().item() if pr.numel() else 0.0
+    lim = BSR_REL * (pr.abs().max().item() if pr.numel() else 0.0)
+    if err > lim or not bool(pk.isfinite().all()):
+        raise RuntimeError(f"BSR partials disagree with the plain version: "
+                           f"max abs err {err:.3e} > {lim:.3e}")
     return err
 
 
@@ -260,12 +299,12 @@ class Smoke:
         from sparsetpu_torch import _host
         from sparsetpu_torch.bench.harness import call_ms, stream_ms
         from sparsetpu_torch.formats.gold import spmm_gold
-        from sparsetpu_torch.kernels import (f64emu, spmm, spmv_fused,
+        from sparsetpu_torch.kernels import (bsr, f64emu, spmm, spmv_fused,
                                              spmv_gstream)
         from sparsetpu_torch.pack import final_levels
         self.torch, self.st, self.h = torch, st, _host
         self.fused, self.sg, self.fl = spmv_fused, spmv_gstream, final_levels
-        self.f64 = f64emu
+        self.f64, self.bsr = f64emu, bsr
         self.sp, self.spmm_gold = spmm, spmm_gold
         self._call_ms, self._stream_ms = call_ms, stream_ms
         self.dev = torch.device(device)
@@ -293,6 +332,7 @@ class Smoke:
         self.sg.gstream_chunk_sums_f64.launches = 0
         self.sg.final_gather_f64.launches = 0
         self.sp.gstream_chunk_sums_multi_f64.launches = 0
+        self.bsr.bsr_partials.launches = 0
 
     def _counts(self):
         f = self.sg.gstream_chunk_sums.launches
@@ -312,7 +352,8 @@ class Smoke:
                     self.sg.gstream_chunk_sums_f64.launches,
                 "gstream_final_legacy_f64": self.sg.final_gather_f64.launches,
                 "gstream_spmm_f64":
-                    self.sp.gstream_chunk_sums_multi_f64.launches}
+                    self.sp.gstream_chunk_sums_multi_f64.launches,
+                "bsr_partials": self.bsr.bsr_partials.launches}
 
     def kernels_of(self, d):
         """The kernels a device's ``spmv`` launches."""
@@ -576,6 +617,32 @@ class Smoke:
             _agree(vk, vec)
         if d.final is not None:
             self.final(d.final, vec, d.meta.nr_rows, tag, measure)
+
+    def bsr_kernel(self, d, x2, tag, measure=True):
+        """The BSR kernel of one ``BSRDevice`` vs its plain version;
+        measured (time, bound, and ``torch.bmm`` of the blocks by their
+        gathered x segments, the gather timed in) when ``measure``.
+        Returns the plain partials."""
+        torch = self.torch
+        ref = self.bsr.bsr_partials_reference
+        pk, pr = d.partials(x2), d.partials(x2, ref)
+        self.sync()
+        err = _agree_partials(pk, pr)
+        if not measure:
+            return pr
+        ms = self.call_ms(lambda: d.partials(x2))
+        plain_ms = self.call_ms(lambda: d.partials(x2, ref), repeats=10)
+        blocks3 = d.blocks.view(d.n_blocks, 8, 128)
+        bcol = d.bcol.long()
+
+        def library():
+            return torch.bmm(blocks3, x2[bcol].unsqueeze(-1))
+        _agree_partials(library().view(d.n_blocks, 8), pr)
+        lib_ms = self.call_ms(library)
+        self.record("bsr_partials", tag, err, ms, plain_ms,
+                    _nbytes(d.blocks, d.bcol, x2, pk), 2 * d.blocks.numel(),
+                    lib_ms)
+        return pr
 
     def fused_kernel(self, dev, x, tag, lib_ms, multi=False):
         """The fused SpMV (or, with ``multi``, SpMM on X row-major
@@ -996,6 +1063,300 @@ def f64_classic_regimes(s):
               f"errors", flush=True)
 
 
+def describe_bsr(d) -> str:
+    fin = d.plan
+    out = (f"BSR {d.nr_rows}x{d.nr_cols}, {d.n_blocks} blocks (padded), "
+           f"{d.blocks.numel() * 4} B of values")
+    if fin is None:
+        return out + "; final: none (segment sum)"
+    return (out + f"; legacy final tps={fin.tiles_per_step} G={fin.G} "
+            f"nw={fin.nw} instances={fin.step_meta.shape[0]} "
+            f"spills={fin.spill_pos.size}")
+
+
+def bsr_regimes(s):
+    """The BSR kernel vs its plain version and y vs the gold on small
+    matrices: the JAX tests' banded and random shapes, a ragged one
+    (nr_rows % 8 and nr_cols % 128 nonzero) and the segment-sum route."""
+    torch, h, fl = s.torch, s.h, s.fl
+    cases = [
+        ("banded 300x300 bw 10", h.banded_csr(300, 300, bandwidth=10), False),
+        ("banded 1000x700 bw 40", h.banded_csr(1000, 700, bandwidth=40),
+         False),
+        ("random 200x500 d 0.05", h.random_csr(200, 500, density=0.05,
+                                               seed=72), False),
+        ("ragged 1001x1001", h.random_csr(1001, 1001, density=0.01,
+                                          seed=73), False),
+        ("segment-sum route", h.banded_csr(1000, 700, bandwidth=40, seed=1),
+         True),
+    ]
+    build = fl._FinalLevel.build
+    for tag, m, seg in cases:
+        b = h.csr_to_bsr(m)
+        if seg:
+            # no final builds, as a pathological placement makes it
+            fl._FinalLevel.build = classmethod(lambda cls, *a, **k: None)
+        try:
+            d = s.bsr.BSRDevice(b, s.dev)
+        finally:
+            fl._FinalLevel.build = build
+        if (d.final is None) != seg:
+            raise RuntimeError(f"bsr regime {tag}: {describe_bsr(d)}")
+        x = np.random.default_rng(3).standard_normal(m.nr_cols)
+        xt = torch.as_tensor(x, dtype=torch.float32, device=s.dev)
+        expected = {"bsr_partials"} | (
+            {"gstream_final_legacy"} if d.final is not None else set())
+        y = s.drive(f"bsr regime {tag}", lambda: d.spmv(xt), expected,
+                    main=False)
+        _gold_errors(h, m, x, y.cpu().numpy())
+        parts = s.bsr_kernel(d, d.prepare_x(xt), tag, measure=False)
+        if d.final is not None:
+            s.final(d.final, parts.reshape(-1), d.rows_pad, tag,
+                    measure=False)
+        print(f"bsr regime {tag}: {describe_bsr(d)} | kernels agree with "
+              f"their plain versions | vs spmv_gold 0 errors", flush=True)
+
+
+def solver_checks(s):
+    """``bicgstab``, ``gmres`` (also through a breakdown) and
+    ``power_iteration`` once each on the card, at the JAX tests' sizes,
+    against dense host solutions."""
+    import scipy.sparse as sp
+    torch, h, st = s.torch, s.h, s.st
+
+    def on_card(dense):
+        rows, cols = np.nonzero(dense)
+        m = h.CSRMatrix.from_coo(rows, cols, dense[rows, cols].astype(
+            np.float32), *dense.shape)
+        return st.SparseMatrix(m, device=s.dev)
+
+    rng = np.random.default_rng(0)
+    dense = h.random_csr(80, 80, density=0.2, seed=30).to_dense()
+    dense = dense + np.diag(np.abs(dense).sum(axis=1) + 1.0)
+    b = rng.standard_normal(80).astype(np.float32)
+    res = st.bicgstab(on_card(dense).spmv, torch.as_tensor(b, device=s.dev),
+                      tol=1e-6, maxiter=500)
+    err = float(np.abs(dense @ res.x.cpu().numpy() - b).max())
+    if err > 1e-3:
+        raise RuntimeError(f"bicgstab: |A x - b| {err:.3e}")
+    print(f"solver bicgstab (80x80, diagonally dominant): {res.iterations} "
+          f"iterations, max |A x - b| {err:.3e}", flush=True)
+
+    rng = np.random.default_rng(3)
+    a = (sp.eye(400) + sp.random(
+        400, 400, density=0.02, random_state=5,
+        data_rvs=lambda k: 0.1 * rng.standard_normal(k))).toarray()
+    low = np.random.default_rng(4).standard_normal((64, 2))
+    breakdown = np.eye(64) + 0.3 * low @ np.random.default_rng(
+        5).standard_normal((2, 64))
+    for tag, dense, restart in (("I + sparse 400x400", a, 25),
+                                ("I + rank 2, 64x64, restart 10",
+                                 breakdown, 10)):
+        b = np.random.default_rng(6).standard_normal(
+            dense.shape[0]).astype(np.float32)
+        res = st.gmres(on_card(dense).spmv, torch.as_tensor(b, device=s.dev),
+                       restart=restart, tol=1e-5, maxiter=300)
+        rel = float(np.linalg.norm(dense @ res.x.cpu().numpy() - b)
+                    / np.linalg.norm(b))
+        if rel > 1e-3:
+            raise RuntimeError(f"gmres {tag}: relative residual {rel:.3e}")
+        print(f"solver gmres ({tag}): {res.iterations} Arnoldi steps, "
+              f"||A x - b|| / ||b|| {rel:.3e}", flush=True)
+
+    m = h.laplace_2d(8)
+    lam, _ = st.power_iteration(st.SparseMatrix(m, device=s.dev).spmv,
+                                m.nr_rows, iters=200, device=s.dev)
+    top = float(np.linalg.eigvalsh(m.to_dense())[-1])
+    if abs(float(lam) - top) > 1e-2 * abs(top):
+        raise RuntimeError(f"power_iteration: {float(lam)} vs {top}")
+    print(f"solver power_iteration (laplace_2d(8), 200 iterations): "
+          f"{float(lam):.6f} vs eigvalsh {top:.6f}", flush=True)
+
+
+def bsr_main(s, small, t0):
+    """BSR SpMV at FEM-3D Poisson 72^3 (``BSRDevice.spmv``: #14 then the
+    legacy final #5), then PCG on it."""
+    torch, h, st = s.torch, s.h, s.st
+    n = 16 if small else 72
+    m = h.fem_poisson_3d(n, np.float32)
+    b = h.csr_to_bsr(m)
+    t1 = time.perf_counter()
+    d = st.BSRDevice(b, s.dev)
+    s.sync()
+    tag = f"bsr FEM-3D Poisson {n}^3"
+    print(f"{tag}: {m.nr_rows}x{m.nr_cols} nnz={m.nr_nzeros}, "
+          f"{b.values.shape[0]} blocks (fill "
+          f"{m.nr_nzeros / max(b.nr_nzeros, 1):.4f}), matrix and csr_to_bsr "
+          f"in {t1 - t0:.1f} s, upload + final build in "
+          f"{time.perf_counter() - t1:.1f} s: {describe_bsr(d)}", flush=True)
+    if d.final is None:
+        raise RuntimeError(f"{tag}: expected the legacy final")
+    x = np.random.default_rng(0).standard_normal(m.nr_cols)
+    xt = torch.as_tensor(x, dtype=torch.float32, device=s.dev)
+    y = s.drive(tag, lambda: d.spmv(xt),
+                {"bsr_partials", "gstream_final_legacy"})
+    counts = s._counts()
+    if s.dev.type == "cuda" and (counts["bsr_partials"] != 1 or
+                                 counts["gstream_final_legacy"] != 1):
+        raise RuntimeError(f"{tag}: expected one launch each of #14 and #5,"
+                           f" got {counts}")
+    if tuple(y.shape) != (m.nr_rows,) or not bool(y.isfinite().all()):
+        raise RuntimeError(f"{tag}: bad y, shape {tuple(y.shape)}")
+    _gold_errors(h, m, x, y.cpu().numpy())
+    print(f"{tag}: 0 errors vs spmv_gold", flush=True)
+    parts = s.bsr_kernel(d, d.prepare_x(xt), tag)
+    s.final(d.final, parts.reshape(-1), d.rows_pad, tag, measure=False)
+    ms = s.call_ms(lambda: d.spmv(xt), repeats=20)
+    print(f"  {tag}: BSRDevice.spmv {ms:.4f} ms a call "
+          f"({m.nr_nzeros / ms / 1e6:.2f} Gnnz/s)", flush=True)
+    s.profile(tag, lambda: d.spmv(xt))
+    sm = st.SparseMatrix(m, device=s.dev)
+    print(f"  {tag}, CSR route: {s.describe(sm.device_module)}", flush=True)
+    s.whole_call(sm, m, xt, tag + " (CSR route)")
+    s.profile(tag + " (CSR route)", lambda: sm @ xt)
+    del sm
+    print(f"phase {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # ---- PCG on the BSR operator
+    t0 = time.perf_counter()
+    tag = f"pcg on BSR (FEM-3D Poisson {n}^3)"
+    rhs = torch.ones(m.nr_rows, device=s.dev)
+    m_inv = st.jacobi_preconditioner(m, device=s.dev)
+    t1 = time.perf_counter()
+    res = s.drive(tag, lambda: st.pcg(d.spmv, rhs, m_inv, tol=1e-5,
+                                      maxiter=2000),
+                  {"bsr_partials", "gstream_final_legacy"})
+    wall = time.perf_counter() - t1
+    counts = s._counts()
+    k = res.iterations
+    if s.dev.type == "cuda" and (
+            counts["bsr_partials"] != k + 1 or
+            counts["gstream_final_legacy"] != k + 1):
+        raise RuntimeError(f"{tag}: expected {k + 1} launches of #14 and #5"
+                           f" (one an SpMV), got {counts}")
+    xs = res.x.cpu().numpy().astype(np.float64)
+    rel = float(np.linalg.norm(1.0 - h.spmv_gold(m, xs)) /
+                np.sqrt(m.nr_rows))
+    if not rel <= 1e-4 or k >= 2000:
+        raise RuntimeError(f"{tag}: ||b - A x|| / ||b|| {rel:.3e} after {k}"
+                           f" iterations")
+    print(f"{tag}: {k} iterations, {wall * 1e3 / max(k, 1):.4f} ms an "
+          f"iteration (host clock, the loop's scalar syncs included), "
+          f"||b - A x|| / ||b|| {rel:.3e} (f64, spmv_gold), #14 and #5 "
+          f"launched {k + 1} times each", flush=True)
+    print(f"phase {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def cg_df64_main(s, small, t0):
+    """``cg_df64`` on FEM-3D Poisson 72^3 in f64 through ``SparseMatrix``."""
+    torch, h, st = s.torch, s.h, s.st
+    n = 16 if small else 72
+    m = h.fem_poisson_3d(n)
+    sm = st.SparseMatrix(m, device=s.dev)
+    d = sm.device_module
+    route = "fused f64" if isinstance(d, s.fused.DF64FusedDevice) \
+        else "classic f64 (not the fused f64 device)"
+    tag = f"cg_df64 (FEM-3D Poisson {n}^3, f64)"
+    print(f"{tag}: {route} device: {s.describe(d)}", flush=True)
+    rhs = torch.ones(m.nr_rows, dtype=torch.float64, device=s.dev)
+    t1 = time.perf_counter()
+    res = s.drive(tag, lambda: st.cg_df64(sm.spmv, rhs, tol=1e-10,
+                                          maxiter=3000), s.kernels_of(d))
+    wall = time.perf_counter() - t1
+    k = res.iterations
+    rel = float(np.linalg.norm(1.0 - h.spmv_gold(m, res.x.cpu().numpy())) /
+                np.sqrt(m.nr_rows))
+    if res.x.dtype != torch.float64 or not rel <= 1e-9 or k >= 3000:
+        raise RuntimeError(f"{tag}: ||b - A x|| / ||b|| {rel:.3e} after {k}"
+                           f" iterations ({res.x.dtype})")
+    print(f"{tag}: {k} iterations, {wall * 1e3 / max(k, 1):.4f} ms an "
+          f"iteration, ||b - A x|| / ||b|| {rel:.3e} (f64, spmv_gold)",
+          flush=True)
+    print(f"phase {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _spgemm_gold(h, a, b, c, tag) -> float:
+    """C against scipy's A @ B in f64: the same pattern (sorted columns),
+    values with 0 errors at the f32 tolerance of its terms a value.
+    Returns the max abs error; raises on a mismatch."""
+    import scipy.sparse  # noqa: F401  (to_scipy)
+    g = (a.to_scipy().astype(np.float64) @ b.to_scipy().astype(
+        np.float64)).tocsr()
+    g.sum_duplicates()
+    g.sort_indices()
+    if not (np.array_equal(c.row_ptr, g.indptr)
+            and np.array_equal(c.col_ind, g.indices)):
+        raise RuntimeError(f"{tag}: C's pattern is not the gold's")
+    terms = int(np.diff(b.row_ptr)[a.col_ind].sum())
+    atol, rtol = h.default_tolerance(np.float32, terms / max(g.nnz, 1))
+    errors = h.verification(g.data, c.values, diff_thres=atol, rel_thres=rtol)
+    if errors or c.values.dtype != np.float32:
+        raise RuntimeError(f"{tag}: {errors} values disagree with the gold")
+    return float(np.abs(c.values - g.data).max(initial=0.0))
+
+
+def spgemm_regimes(s):
+    """``sm @ m`` and ``sm @ sm`` on the card at the JAX tests' shapes: the
+    operator builds its plan and runs the numeric phase on A's device."""
+    h, st = s.h, s.st
+    for (ra, ca), (rb, cb), da, db in (((200, 300), (300, 150), 0.05, 0.05),
+                                       ((64, 64), (64, 64), 0.2, 0.2),
+                                       ((500, 100), (100, 800), 0.02, 0.03)):
+        a = h.random_csr(ra, ca, density=da, seed=31, dtype=np.float32)
+        b = h.random_csr(rb, cb, density=db, seed=32, dtype=np.float32)
+        sa = st.SparseMatrix(a, device=s.dev)
+        tag = f"SpGEMM regime {ra}x{ca} @ {rb}x{cb}"
+        for operand, name in ((b, "CSR"), (st.SparseMatrix(b, device=s.dev),
+                                          "SparseMatrix")):
+            c = s.drive(f"{tag} ({name})", lambda: sa @ operand,
+                        {"fused_spmv"}, main=False)
+            err = _spgemm_gold(h, a, b, c, tag)
+        print(f"{tag}: sm @ m and sm @ sm give the gold's pattern, values "
+              f"0 errors (max abs {err:.3e})", flush=True)
+
+
+def spgemm_main(s, small, t0):
+    """C = A @ A on the roadNet-CA stand-in: the plan ``sm @ m`` builds
+    (``SpGEMMPlan``, once: its host phase takes minutes at this size), then
+    what ``sm @ m`` runs on it, ``plan.to_csr(plan(b.values))``, as the main
+    path; the numeric phase timed beside cuSPARSE's SpGEMM."""
+    torch, h, st = s.torch, s.h, s.st
+    m = road_net_ca(h, nnz=20_000) if small else road_net_ca(h)
+    tag = "SpGEMM roadNet-CA A @ A"
+    t1 = time.perf_counter()
+    plan = st.SpGEMMPlan(m, m, device=s.dev)
+    s.sync()
+    plan_s = time.perf_counter() - t1
+    ev = plan.event_matrix
+    d = ev.device_module
+    print(f"{tag}: matrix in {t1 - t0:.1f} s; plan (host symbolic phase, "
+          f"event matrix {ev.nr_rows}x{ev.nr_cols} nnz={ev.nr_nzeros}, "
+          f"pack + upload) in {plan_s:.1f} s; "
+          f"{plan.flops // 2} multiplications, nnz(C) = {plan.nnz_c}; "
+          f"numeric phase on: {s.describe(d)}", flush=True)
+    bv = torch.as_tensor(m.values, device=s.dev)
+    t1 = time.perf_counter()
+    c = s.drive(tag, lambda: plan.to_csr(plan(bv)), s.kernels_of(d))
+    print(f"{tag}: numeric phase and C to the host in "
+          f"{time.perf_counter() - t1:.2f} s", flush=True)
+    err = _spgemm_gold(h, m, m, c, tag)
+    print(f"{tag}: C pattern equal to the gold's, values 0 errors at the f32 "
+          f"tolerance (max abs {err:.3e})", flush=True)
+    ms = s.call_ms(lambda: plan(bv), repeats=20)
+    print(f"  {tag}: numeric phase plan(b.values) {ms:.4f} ms a call "
+          f"({plan.flops / 2 / ms / 1e6:.2f} G multiplications/s)",
+          flush=True)
+    s.profile(tag + ", numeric phase", lambda: plan(bv))
+    a = s.csr(m)
+    try:
+        lib_ms = s.call_ms(lambda: a @ a, repeats=5)
+        print(f"  {tag}: torch.sparse_csr @ itself (cuSPARSE SpGEMM, "
+              f"symbolic + numeric) {lib_ms:.4f} ms a call", flush=True)
+    except RuntimeError as e:
+        print(f"  {tag}: cuSPARSE SpGEMM not available ({e})", flush=True)
+    print(f"phase {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def main_path(s, tag, make, run_devices, t0):
     """Build a matrix, pack it with ``run_devices`` (a ``SparseMatrix`` or a
     ``GStreamDevice``, and the devices behind it), drive its ``spmv`` once
@@ -1255,6 +1616,19 @@ def run(device, hbm: float, small: bool = False):
     s.gstream_multi(d, Xt, tag)
     print(f"phase wide x f64: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    del m, sm, Xt, d
+
+    # ---- BSR, the solvers and SpGEMM
+    t0 = time.perf_counter()
+    bsr_regimes(s)
+    solver_checks(s)
+    spgemm_regimes(s)
+    print(f"phase bsr, solver and SpGEMM regimes: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    bsr_main(s, small, time.perf_counter())
+    cg_df64_main(s, small, time.perf_counter())
+    spgemm_main(s, small, time.perf_counter())
+
     missing = sorted(set(KERNELS) - set(s.records))
     if missing:
         raise RuntimeError(f"kernels never measured on a main path: "
@@ -1292,6 +1666,8 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     hbm = hbm_gbps("cuda")
+    # full f32 in matrix products (the BSR kernel's library yardstick)
+    torch.backends.cuda.matmul.allow_tf32 = False
     kernels = run("cuda", hbm)
     print(f"[{card}, HBM {hbm:.0f} GB/s]", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

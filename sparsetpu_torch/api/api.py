@@ -22,9 +22,10 @@ built from the kept source CSR when the matrix is fused).
 f64 configs (the default for an f64 matrix) route as the JAX package's
 DOUBLE path (``api/api.py:62-83``): the fused f64 device where the layout
 applies, else the classic f64 device; x, X and y are float64, and ``A @ X``
-is ``spmm_df64``.  SpGEMM is not ported yet and raises
-``NotImplementedError`` naming the ROADMAP item.  Nothing falls back to COO
-or to the CPU.
+is ``spmm_df64``.  ``A @ B`` for a sparse B (a ``SparseMatrix`` or a CSR
+matrix) is SpGEMM (``kernels/spgemm.py``): the symbolic phase on the host,
+the numeric phase an SpMV on this matrix's device; it returns a host
+``CSRMatrix``.  Nothing falls back to COO or to the CPU.
 """
 
 from __future__ import annotations
@@ -36,12 +37,14 @@ import torch
 
 from .. import _host
 from ..kernels.f64emu import DF64GStreamDevice, spmm_df64
+from ..kernels.spgemm import spgemm
 from ..kernels.spmm import spmm_gstream
 from ..kernels.spmv_coo import spmm_coo, spmv_coo
 from ..kernels.spmv_fused import (DF64FusedDevice, FusedDevice,
                                   pack_fused_df64)
 from ..kernels.spmv_gstream import GStreamDevice
 from ..pack.balance import balance_rows
+from ..pack.gather_stream import GStreamMatrix, unpack_gstream
 from ..utils.device import require_device
 
 
@@ -85,8 +88,10 @@ class SparseMatrix:
         self._parts = None         # row partitions (num_partitions > 1)
         self._heavy_dev = None     # the hybrid's heavy-row device
         self._heavy_rows = None
-        self._source = None        # the CSR, for a lazy classic device
+        self._source = None        # the CSR, for a lazy classic device,
+                                   # unpack() and SpGEMM
         self._classic = None
+        self._transposed = None
         if backend == "coo":
             coo = matrix.to_coo()
 
@@ -281,15 +286,50 @@ class SparseMatrix:
         return self._classic
 
     def __matmul__(self, x):
-        if isinstance(x, SparseMatrix) or hasattr(x, "row_ptr"):
-            raise NotImplementedError("SpGEMM is not ported yet: ROADMAP "
-                                      "Queue 1 #8")
+        if isinstance(x, SparseMatrix) or (hasattr(x, "row_ptr") and
+                                           np.ndim(x.values) == 1):
+            # sparse @ sparse -> SpGEMM (numeric phase on this device)
+            other = x.unpack() if isinstance(x, SparseMatrix) else x
+            if self.backend == "coo":
+                raise ValueError("SpGEMM needs a packed backend (auto or "
+                                 "fused), not coo")
+            return spgemm(self.unpack(), other, device=self.device)
         ndim = x.ndim if hasattr(x, "ndim") else np.ndim(x)
         if ndim == 1:
             return self.spmv(x)
         if ndim == 2:
             return self.spmm(x)
         raise ValueError("operand must be a vector or matrix")
+
+    def unpack(self):
+        """The matrix as a host ``CSRMatrix``: the kept source, or the
+        classic pack unpacked (``api/api.py:369-384`` of the JAX
+        package)."""
+        if self._source is not None:
+            return self._source
+        if self._parts is not None:
+            raise ValueError("partitioned matrix lost its source CSR; "
+                             "unpack the original handle")
+        if self._packed is None:
+            raise ValueError("COO-backend matrix: keep the original CSR")
+        if not isinstance(self._packed, GStreamMatrix) or \
+                self.config.is_double:
+            raise ValueError("fused (or f64) matrix lost its source CSR; "
+                             "unpack the original handle")
+        return unpack_gstream(self._packed)
+
+    def transpose(self) -> "SparseMatrix":
+        """A^T, packed lazily on first access (cached), with the same
+        config, backend and device."""
+        if self._transposed is None:
+            self._transposed = SparseMatrix(
+                self.unpack().transpose(), self.config, backend=self.backend,
+                device=self.device)
+        return self._transposed
+
+    @property
+    def T(self) -> "SparseMatrix":
+        return self.transpose()
 
     # reporting (the reference's main.cpp:84-88)
     def storage_overhead(self) -> float:
@@ -356,3 +396,31 @@ def spmv(matrix, x, config=None, *, device="cuda") -> torch.Tensor:
     elif matrix.device != require_device(device):
         raise ValueError(f"matrix lives on {matrix.device}, not {device}")
     return matrix.spmv(x)
+
+
+def unpack(matrix: SparseMatrix):
+    return matrix.unpack()
+
+
+# --- reference-named aliases (the reference's README.md:34-46) -------------
+
+def create_csr_hw_matrix(matrix, config=None, *,
+                         device="cuda") -> SparseMatrix:
+    return pack(matrix, config, device=device)
+
+
+def create_csr_hw_x_vector(hw_matrix: SparseMatrix, x) -> torch.Tensor:
+    return hw_matrix.prepare_x(x)
+
+
+def spmv_hw(hw_matrix: SparseMatrix, hw_x) -> torch.Tensor:
+    return hw_matrix.spmv_packed_x(hw_x)
+
+
+def delete_csr_hw_matrix(hw_matrix) -> None:
+    """No-op: device buffers are freed with the last reference to them.
+    Kept so reference-shaped programs port line for line."""
+
+
+def delete_csr_hw_x_vector(hw_x) -> None:
+    """No-op (see ``delete_csr_hw_matrix``)."""

@@ -7,7 +7,7 @@ the heavy-row hybrid, the classic GStream device (wide x, ``block_cols <
 kind as the JAX package and gives the same y (rtol 1e-5, atol 1e-5 *
 max(1, max|y|): the same f32 terms summed in another order), and ``A @ X``
 its Y.  f64 configs take the f64 devices (``tests/test_torch_f64.py``);
-SpGEMM still raises ``NotImplementedError``.
+``A @ B`` for a sparse B is SpGEMM (``tests/test_torch_spgemm.py``).
 """
 
 import os
@@ -20,7 +20,8 @@ import torch
 
 from sparsetpu.api.api import SparseMatrix as JaxSparseMatrix
 from sparsetpu.formats.csr import CSRMatrix
-from sparsetpu.formats.gold import default_tolerance, spmv_gold, verification
+from sparsetpu.formats.gold import (default_tolerance, spgemm_gold, spmv_gold,
+                                   verification)
 from sparsetpu.formats.random import random_csr
 from sparsetpu.kernels.spmv_fused import FusedDevice as JaxFusedDevice
 from sparsetpu.kernels.spmv_pallas import GStreamDevice as JaxGStreamDevice
@@ -155,9 +156,10 @@ def test_unported_devices_raise(cfg, match):
 
 
 def test_fused_spmm_and_spgemm_raise():
-    """(The name dates from before SpMM was ported.)  ``sm @ X`` for a 2-D
-    X is the fused SpMM and passes the gold; SpGEMM still raises naming
-    the ROADMAP item."""
+    """(The name dates from before SpMM and SpGEMM were ported.)  ``sm @ X``
+    for a 2-D X is the fused SpMM and passes the gold; ``sm @ B`` for a
+    sparse B is SpGEMM and gives ``spgemm_gold``'s pattern, its values
+    within 1e-4 (f32, a few products a term)."""
     m = random_csr(300, 2000, density=0.01, seed=1, dtype=np.float32)
     sm = st.SparseMatrix(m, device="cpu")
     X = np.random.default_rng(2).standard_normal((m.nr_cols, 2))
@@ -165,8 +167,15 @@ def test_fused_spmm_and_spgemm_raise():
     assert Y.shape == (m.nr_rows, 2) and Y.dtype == np.float32
     for j in range(2):
         _gold_ok(m, X[:, j], Y[:, j])
-    with pytest.raises(NotImplementedError, match="Queue 1 #8"):
-        sm @ m
+    b = random_csr(m.nr_cols, 50, density=0.01, seed=3, dtype=np.float32)
+    c = sm @ b
+    g = spgemm_gold(m, b).to_scipy().tocsr()
+    g.sum_duplicates()
+    g.sort_indices()
+    assert isinstance(c, st.CSRMatrix) and c.shape == (m.nr_rows, 50)
+    np.testing.assert_array_equal(c.row_ptr, g.indptr)
+    np.testing.assert_array_equal(c.col_ind, g.indices)
+    np.testing.assert_allclose(c.values, g.data, rtol=1e-4, atol=1e-4)
 
 
 def test_fused_spmm_matches_jax():
