@@ -83,12 +83,33 @@ and BSR SpMV, the solvers and SpGEMM last:
                    f64 by the gold;
   cg_df64          ``fem_poisson_3d(72)`` in f64 through ``SparseMatrix``
                    (the fused f64 device) to 1e-10;
-  SpGEMM           A @ A at the roadNet-CA stand-in: the plan once, then
-                   its numeric phase and C against scipy's product, beside
-                   cuSPARSE's SpGEMM.
+  SpGEMM           A @ A at the roadNet-CA stand-in cut to 2M nnz: the
+                   plan once, then its numeric phase and C against scipy's
+                   product, beside cuSPARSE's SpGEMM.
 
 The BSR partials are held to their plain version at max abs error <= 1e-5
 * max|plain|.
+
+and the measurement path (``bench/micro.py``, ``pack/rates.py``,
+``api/autotune.py``, ``bench/__main__.py``):
+
+  micro ladder     ``bench_ladder`` at 32768 tiles: each stage of
+                   ``csrc/micro_ladder.cu`` (stream, lane, dual, tilebase,
+                   window-G from L2 and from shared memory, G = 1..32)
+                   timed beside its bound, then held to ``ladder_reference``
+                   on the same inputs;
+  rates            ``refresh_rates`` over the 24 (G, Q) at 32768 tiles (the
+                   forward kernel #3, counted as ``rates_forward``), the
+                   cache in a temporary directory; #3 at two combos against
+                   its plain version; the roadNet-CA stand-in packed with the
+                   default chooser and with the card's table, each ``A @ x``
+                   against the gold;
+  autotune         ``autotune_pack`` on the roadNet-CA stand-in cut to 1M
+                   nnz, each candidate's time, the pick's y against the
+                   gold, then ``bench_spmv(..., autotune=True)`` on the same
+                   matrix;
+  bench entry      ``python -m sparsetpu_torch.bench`` in a subprocess: its
+                   last line parses, value > 0, 0 gate errors.
 
 Each main path is driven once through the entry points a user calls, with
 every kernel's launch count set to 0 just before and read just after; a
@@ -152,7 +173,16 @@ KERNELS = {
                          "sparsetpu/kernels/f64emu.py:319"),
     "bsr_partials": ("sparsetpu_torch/csrc/bsr_spmv.cu",
                      "sparsetpu/kernels/bsr.py:30"),
+    "rates_forward": ("sparsetpu_torch/csrc/gstream_spmv.cu",
+                      "sparsetpu/pack/rates.py:115"),
 }
+# the stage ladder: one entry a stage (bench_ladder's keys)
+LADDER_GS = (1, 2, 4, 8, 16, 32)
+LADDER_STAGES = ("stream", "lane", "dual", "tilebase") + tuple(
+    f"window-{G}{kind}" for G in LADDER_GS for kind in ("", "-smem"))
+for _stage in LADDER_STAGES:
+    KERNELS[f"ladder_{_stage}"] = ("sparsetpu_torch/csrc/micro_ladder.cu",
+                                   "sparsetpu/bench/micro.py:95")
 
 
 def _real(t) -> str:
@@ -297,12 +327,14 @@ class Smoke:
         import torch
         import sparsetpu_torch as st
         from sparsetpu_torch import _host
+        from sparsetpu_torch.bench import micro
         from sparsetpu_torch.bench.harness import call_ms, stream_ms
         from sparsetpu_torch.formats.gold import spmm_gold
         from sparsetpu_torch.kernels import (bsr, f64emu, spmm, spmv_fused,
                                              spmv_gstream)
-        from sparsetpu_torch.pack import final_levels
+        from sparsetpu_torch.pack import final_levels, rates
         self.torch, self.st, self.h = torch, st, _host
+        self.micro, self.rates = micro, rates
         self.fused, self.sg, self.fl = spmv_fused, spmv_gstream, final_levels
         self.f64, self.bsr = f64emu, bsr
         self.sp, self.spmm_gold = spmm, spmm_gold
@@ -333,6 +365,7 @@ class Smoke:
         self.sg.final_gather_f64.launches = 0
         self.sp.gstream_chunk_sums_multi_f64.launches = 0
         self.bsr.bsr_partials.launches = 0
+        self.micro.ladder_stage.launches.clear()
 
     def _counts(self):
         f = self.sg.gstream_chunk_sums.launches
@@ -353,7 +386,10 @@ class Smoke:
                 "gstream_final_legacy_f64": self.sg.final_gather_f64.launches,
                 "gstream_spmm_f64":
                     self.sp.gstream_chunk_sums_multi_f64.launches,
-                "bsr_partials": self.bsr.bsr_partials.launches}
+                "bsr_partials": self.bsr.bsr_partials.launches,
+                "rates_forward": 0,
+                **{f"ladder_{k}": self.micro.ladder_stage.launches[k]
+                   for k in LADDER_STAGES}}
 
     def kernels_of(self, d):
         """The kernels a device's ``spmv`` launches."""
@@ -396,16 +432,20 @@ class Smoke:
                    for lvl in getattr(d.final, "levels", [d.final])}
         return ks
 
-    def drive(self, tag, fn, expected, main=True):
+    def drive(self, tag, fn, expected, main=True, rename=None):
         """The main path: counts set to 0 just before ``fn``, read just
         after; every expected kernel must have launched.  The counts add to
-        the run's totals when ``main`` (not for the regimes)."""
+        the run's totals when ``main`` (not for the regimes).  ``rename``
+        moves a wrapper's count to the entry of the kernel it stands for on
+        this path (the rate sweep's forward launches are ``rates_forward``)."""
         self._zero_counts()
         t0 = time.perf_counter()
         y = fn()
         self.sync()
         dt = time.perf_counter() - t0
         counts = self._counts()
+        for a, b in (rename or {}).items():
+            counts[b], counts[a] = counts[b] + counts[a], 0
         if self.dev.type == "cuda":
             missing = sorted(k for k in expected if counts[k] < 1)
             if missing:
@@ -1316,12 +1356,13 @@ def spgemm_regimes(s):
 
 
 def spgemm_main(s, small, t0):
-    """C = A @ A on the roadNet-CA stand-in: the plan ``sm @ m`` builds
-    (``SpGEMMPlan``, once: its host phase takes minutes at this size), then
-    what ``sm @ m`` runs on it, ``plan.to_csr(plan(b.values))``, as the main
+    """C = A @ A on the roadNet-CA stand-in cut to 2M nnz (its shape; at
+    the full 5.5M nnz the host plan alone took 250-290 s on the H100
+    machine): the plan ``sm @ m`` builds (``SpGEMMPlan``, once), then what
+    ``sm @ m`` runs on it, ``plan.to_csr(plan(b.values))``, as the main
     path; the numeric phase timed beside cuSPARSE's SpGEMM."""
     torch, h, st = s.torch, s.h, s.st
-    m = road_net_ca(h, nnz=20_000) if small else road_net_ca(h)
+    m = road_net_ca(h, nnz=20_000 if small else 2_000_000)
     tag = "SpGEMM roadNet-CA A @ A"
     t1 = time.perf_counter()
     plan = st.SpGEMMPlan(m, m, device=s.dev)
@@ -1355,6 +1396,185 @@ def spgemm_main(s, small, t0):
     except RuntimeError as e:
         print(f"  {tag}: cuSPARSE SpGEMM not available ({e})", flush=True)
     print(f"phase {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def ladder_main(s, small, t0):
+    """#15 on the card: ``bench_ladder`` as the main path (every stage's
+    kernel launched), then each stage held to ``ladder_reference`` on the
+    same inputs, beside its bound and, for ``stream``, one ``torch.sum``
+    of the value stream."""
+    torch, micro = s.torch, s.micro
+    n, T = (256 if small else micro.LADDER_TILES), 16
+    tag = f"micro ladder ({n} tiles, {T} a block)"
+    res = s.drive(tag, lambda: micro.bench_ladder(
+        n, LADDER_GS, device=s.dev, tiles_per_step=T),
+        {f"ladder_{k}" for k in LADDER_STAGES})
+    inp = micro.ladder_inputs(n, LADDER_GS, T, s.dev)
+    val, idx, xw, base = inp["val"], inp["idx"], inp["xw"], inp["base"]
+    for name, stage, cell, G, _ in micro.ladder_runs(inp, LADDER_GS):
+        args = (stage, val, idx, cell, xw, base)
+        yk = micro.ladder_stage(*args, G=G, T=T)
+        yr = micro.ladder_reference(*args, G=G, T=T)
+        s.sync()
+        err = _agree(yk, yr)
+        plain_ms = s.call_ms(lambda: micro.ladder_reference(*args, G=G, T=T),
+                             repeats=10)
+        streams = [val, xw] + ([idx] if stage != "stream" else []) + (
+            [cell] if cell is not None else []) + (
+            [base] if stage == "tilebase" else [])
+        lib_ms = None
+        if stage == "stream":
+            v = val.view(n, 8, 128)
+            _agree(torch.sum(v, 1) * xw[0, 0], yr)
+            lib_ms = s.call_ms(lambda: torch.sum(v, 1))
+        flops = n * 1024 * (1 if stage in ("stream", "lane") else 2)
+        s.record(f"ladder_{name}", tag, err, res[name][0], plain_ms,
+                 _nbytes(*streams, yk), flops, lib_ms)
+    print(f"phase {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _cpu_timer(s):
+    """None on the card (the entry points' own clock); on a CPU rehearsal
+    a host clock, which the entry points refuse to take on their own."""
+    if s.dev.type == "cuda":
+        return None
+    return lambda fn, dev: s.call_ms(fn, repeats=2)
+
+
+def rates_main(s, m, default_dev, small, t0):
+    """#16 on the card: ``refresh_rates`` as the main path (its forward
+    launches are ``rates_forward``), the cache in a temporary directory;
+    #3 at two combos against its plain version; then ``m`` (the roadNet-CA
+    stand-in) on ``default_dev`` (its pack by the default chooser, the
+    wide-x phase's) and packed with the card's table, each ``A @ x``
+    against the gold."""
+    import tempfile
+    torch, rates, sg, h = s.torch, s.rates, s.sg, s.h
+    n = 1024 if small else rates.CARD_RATE_TILES
+    tag = f"rates ({n} tiles)"
+    kind = (torch.cuda.get_device_name(s.dev) if s.dev.type == "cuda"
+            else "cpu")
+    with tempfile.TemporaryDirectory(prefix="sparsetpu_torch_rates_") as d:
+        os.environ["SPARSETPU_TORCH_CACHE"] = d
+        try:
+            table = s.drive(tag, lambda: rates.refresh_rates(
+                s.dev, n_tiles=n, timer=_cpu_timer(s), verbose=True),
+                {"rates_forward"},
+                rename={"gstream_spmv_window": "rates_forward"})
+            cached = rates.load_rates(kind)
+        finally:
+            del os.environ["SPARSETPU_TORCH_CACHE"]
+    if cached != table:
+        raise RuntimeError(f"{tag}: the cached table is not the measured one")
+    qs = (1, 2, 4, 8)
+    print(f"  {tag}: Gslot/s by G (rows) and Q {qs}, cached as "
+          f"{os.path.basename(rates._cache_path(kind))}", flush=True)
+    for g in LADDER_GS:
+        print(f"    G={g:2d}  " + "  ".join(f"{table[(g, q)]:7.1f}"
+                                           for q in qs), flush=True)
+    val, xw0, metas = rates.rate_inputs([g for g, _ in rates.RATE_COMBOS], n)
+    val, xw0 = (torch.from_numpy(a).to(s.dev) for a in (val, xw0))
+    sw = torch.zeros(n // 128, dtype=torch.int32, device=s.dev)
+    err = 0.0
+    for G, Q in ((2, 8), (8, 2)):
+        args = (val, torch.from_numpy(metas[G]).to(s.dev), sw, xw0)
+        ck = sg.gstream_chunk_sums(*args, T=128, G=G, P=8 // Q)
+        cr = sg.gstream_chunk_sums_reference(*args, T=128, G=G, P=8 // Q)
+        s.sync()
+        err = max(err, _agree(ck, cr))
+    # the sweep's own time at (G, Q) = (8, 2), the last combo checked
+    ms = n * 1024 / table[(8, 2)] / 1e6
+    plain_ms = s.call_ms(lambda: sg.gstream_chunk_sums_reference(
+        *args, T=128, G=8, P=4), repeats=10)
+    s.record("rates_forward", tag + ", G=8 Q=2", err, ms, plain_ms,
+             _nbytes(*args, ck), 2 * val.numel(), None)
+    del val, xw0, metas, args, ck, cr
+
+    x = np.random.default_rng(0).standard_normal(m.nr_cols)
+    xt = torch.as_tensor(x, dtype=torch.float32, device=s.dev)
+    t1 = time.perf_counter()
+    card = s.st.GStreamDevice(h.pack_gstream(
+        m, h.SpmvConfig(dtype=np.float32), rates=table), s.dev)
+    s.sync()
+    print(f"  {tag}: roadNet-CA packed with the card's table and uploaded "
+          f"in {time.perf_counter() - t1:.1f} s", flush=True)
+    for label, d in (("default chooser", default_dev), ("card rates", card)):
+        y = s.drive(f"{tag}: roadNet-CA, {label}", lambda: d.spmv(xt),
+                    s.kernels_of(d))
+        _gold_errors(h, m, x, y.cpu().numpy())
+        ms = s.call_ms(lambda: d.spmv(xt), repeats=20)
+        print(f"  {tag}: roadNet-CA, {label}: G={d.meta.G} Q={d.meta.Q}, "
+              f"A @ x (GStreamDevice.spmv) {ms:.4f} ms a call, 0 errors vs "
+              f"spmv_gold | {s.describe(d)}", flush=True)
+    del card
+    print(f"phase {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return table
+
+
+def autotune_main(s, m, table, small, t0):
+    """``autotune_pack`` on ``m`` (the roadNet-CA stand-in) as the main
+    path, each candidate's time printed beside the model's choice with the
+    default table and with the card's ``table``; the pick's ``A @ x``
+    against the gold; then ``bench_spmv(..., autotune=True)`` on the same
+    matrix."""
+    torch, h, st = s.torch, s.h, s.st
+    from sparsetpu_torch.bench.harness import bench_spmv
+    tag = f"autotune (roadNet-CA stand-in, nnz={m.nr_nzeros})"
+    cands, choice = st.autotune_candidates(m)
+    card = st.autotune_candidates(m, table)[1]
+    print(f"{tag}: model choice G={choice[0]} Q={choice[1]} (with the "
+          f"card's table G={card[0]} Q={card[1]}), candidates {cands}",
+          flush=True)
+    t1 = time.perf_counter()
+    sm = s.drive(tag, lambda: st.autotune_pack(
+        m, device=s.dev, timer=_cpu_timer(s), verbose=True),
+        {"gstream_spmv_window"})
+    wall = time.perf_counter() - t1
+    x = np.random.default_rng(0).standard_normal(m.nr_cols)
+    xt = torch.as_tensor(x, dtype=torch.float32, device=s.dev)
+    y = s.drive(f"{tag}: the pick's A @ x", lambda: sm @ xt,
+                s.kernels_of(sm.device_module))
+    _gold_errors(h, m, x, y.cpu().numpy())
+    print(f"{tag}: picked G={sm.packed.G} Q={sm.packed.Q} (fill "
+          f"{sm.fill_factor():.4f}) of {len(cands)} candidates in {wall:.1f} s"
+          f" (packs, uploads and timing); sm @ x "
+          f"{s.call_ms(lambda: sm @ xt, repeats=20):.4f} ms a call, 0 errors "
+          f"vs spmv_gold", flush=True)
+    del sm
+    t1 = time.perf_counter()
+    r = s.drive(f"{tag}: bench_spmv(autotune=True)", lambda: bench_spmv(
+        m, "roadNet-CA stand-in", autotune=True, device=s.dev,
+        timer=_cpu_timer(s)), {"gstream_spmv_window"})
+    if r.verify_errors:
+        raise RuntimeError(f"{tag}: bench_spmv counted {r.verify_errors} "
+                           f"errors")
+    print(r.report(), flush=True)
+    print(f"{tag}: bench_spmv(autotune=True) chose G={r.layout_g} "
+          f"Q={r.layout_q} in {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"phase {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def bench_entry(s, t0):
+    """``python -m sparsetpu_torch.bench`` in a subprocess (``--device cpu
+    --small`` on a CPU rehearsal): its last line parses, value > 0, the
+    gate counted 0 errors."""
+    import subprocess
+    argv = [sys.executable, "-m", "sparsetpu_torch.bench"]
+    if s.dev.type != "cuda":
+        argv += ["--device", "cpu", "--small"]
+    out = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=900)
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        raise RuntimeError(f"bench entry: rc {out.returncode}, stdout "
+                           f"{out.stdout[-2000:]!r}, stderr "
+                           f"{out.stderr[-2000:]!r}")
+    line = json.loads(lines[-1])
+    if not (line["value"] > 0 and line["verify_errors"] == 0
+            and line["backend"] == s.dev.type):
+        raise RuntimeError(f"bench entry: {lines[-1]}")
+    print(f"bench entry ({' '.join(argv[1:])}): {lines[-1]}", flush=True)
+    print(f"phase bench entry: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
 def main_path(s, tag, make, run_devices, t0):
@@ -1523,7 +1743,17 @@ def run(device, hbm: float, small: bool = False):
     s.gstream(devs[0], xt2, "per-tile base (roadNet-CA, GL=2)")
     print(f"phase per-tile base: {time.perf_counter() - t0:.1f} s",
           flush=True)
-    del m, sm, pin, devs
+    del pin, devs
+
+    # ---- the rate sweep (#16) and the chooser with its table, on the same
+    # matrix; autotune on a cut of it: at full size its five candidates'
+    # host packing took 155.7 s on the H100 machine (the 8 flat finals'
+    # build, over every row)
+    table = rates_main(s, m, sm.device_module, small, time.perf_counter())
+    del m, sm
+    t0 = time.perf_counter()
+    autotune_main(s, road_net_ca(h, nnz=20_000 if small else 1_000_000),
+                  table, small, t0)
 
     # ---- web graph: the heavy-row hybrid
     t0 = time.perf_counter()
@@ -1628,6 +1858,10 @@ def run(device, hbm: float, small: bool = False):
     bsr_main(s, small, time.perf_counter())
     cg_df64_main(s, small, time.perf_counter())
     spgemm_main(s, small, time.perf_counter())
+
+    # ---- the stage ladder (#15) and the port's bench line
+    ladder_main(s, small, time.perf_counter())
+    bench_entry(s, time.perf_counter())
 
     missing = sorted(set(KERNELS) - set(s.records))
     if missing:

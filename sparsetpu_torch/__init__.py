@@ -18,7 +18,8 @@ Layer map:
               BSR, COO; SpGEMM's plan
   api/        pack()/spmv()/SparseMatrix and the reference-named host API
   solvers/    CG, PCG, BiCGSTAB, GMRES, power and Jacobi iterations
-  bench/      the main.cpp measurement protocol, CUDA-event timing
+  bench/      the main.cpp measurement protocol, CUDA-event timing, the
+              stage ladder, ``python -m sparsetpu_torch.bench``
   utils/      configuration, device selection, card facts
 """
 
@@ -30,6 +31,7 @@ from ._host import (BSRMatrix, CSRMatrix, SpmvConfig, bsr_to_csr,
 from .api.api import (SparseMatrix, create_csr_hw_matrix,
                       create_csr_hw_x_vector, delete_csr_hw_matrix,
                       delete_csr_hw_x_vector, pack, spmv, spmv_hw, unpack)
+from .api.autotune import autotune_candidates, autotune_pack
 from .kernels.bsr import BSRDevice, bsr_partials, bsr_spmv
 from .kernels.f64emu import DF64GStreamDevice, spmm_df64
 from .kernels.spmm import (final_gather_multi, gstream_chunk_sums_multi,
@@ -45,7 +47,8 @@ from .solvers import (CGResult, bicgstab, cg, cg_df64, cg_step, gmres,
                       power_iteration)
 
 __all__ = [
-    "SparseMatrix", "pack", "spmv", "unpack", "FusedDevice", "fused_spmm",
+    "SparseMatrix", "pack", "spmv", "unpack", "autotune_candidates",
+    "autotune_pack", "FusedDevice", "fused_spmm",
     "fused_spmv", "GStreamDevice", "final_gather", "final_gather_multi",
     "gstream_chunk_sums", "gstream_chunk_sums_multi", "spmm_gstream",
     "DF64FusedDevice", "DF64GStreamDevice", "spmm_df64", "fused_spmv_f64",

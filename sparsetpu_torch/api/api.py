@@ -74,24 +74,8 @@ class SparseMatrix:
         if backend not in ("auto", "fused", "coo"):
             raise ValueError(f"backend must be auto, fused or coo "
                              f"(got {backend!r})")
-        self.device = require_device(device)
-        self.config = config or _host.SpmvConfig(dtype=matrix.dtype)
-        self.nr_rows = matrix.nr_rows
-        self.nr_cols = matrix.nr_cols
-        self.nr_nzeros = matrix.nr_nzeros
-        self.backend = backend
-        self.dtype = (torch.float64 if self.config.is_double
-                      else torch.float32)
-        self._packed = None
-        self._device = None        # FusedDevice or GStreamDevice (or the
-                                   # f64 devices, their subclasses)
-        self._parts = None         # row partitions (num_partitions > 1)
-        self._heavy_dev = None     # the hybrid's heavy-row device
-        self._heavy_rows = None
-        self._source = None        # the CSR, for a lazy classic device,
-                                   # unpack() and SpGEMM
-        self._classic = None
-        self._transposed = None
+        self._init_state(matrix, config or _host.SpmvConfig(
+            dtype=matrix.dtype), backend, device)
         if backend == "coo":
             coo = matrix.to_coo()
 
@@ -122,6 +106,40 @@ class SparseMatrix:
         else:
             self._packed = _pack_classic(matrix, self.config)
             self._device = GStreamDevice(self._packed, self.device, vdt)
+
+    def _init_state(self, matrix, config, backend: str, device) -> None:
+        self.device = require_device(device)
+        self.config = config
+        self.nr_rows = matrix.nr_rows
+        self.nr_cols = matrix.nr_cols
+        self.nr_nzeros = matrix.nr_nzeros
+        self.backend = backend
+        self.dtype = (torch.float64 if self.config.is_double
+                      else torch.float32)
+        self._packed = None
+        self._device = None        # FusedDevice or GStreamDevice (or the
+                                   # f64 devices, their subclasses)
+        self._parts = None         # row partitions (num_partitions > 1)
+        self._heavy_dev = None     # the hybrid's heavy-row device
+        self._heavy_rows = None
+        self._source = None        # the CSR, for a lazy classic device,
+                                   # unpack() and SpGEMM
+        self._classic = None
+        self._transposed = None
+
+    @classmethod
+    def _from_classic(cls, matrix, device_module: GStreamDevice
+                      ) -> "SparseMatrix":
+        """An f32 matrix on an already uploaded classic ``GStreamDevice``
+        of ``matrix`` (``autotune_pack``'s result, as
+        ``sparsetpu/api/autotune.py:92-105`` builds it)."""
+        sm = cls.__new__(cls)
+        sm._init_state(matrix, _host.SpmvConfig(dtype=np.float32), "auto",
+                       device_module.device)
+        sm._source = matrix
+        sm._packed = device_module.meta
+        sm._device = device_module
+        return sm
 
     def _build_double(self, matrix) -> None:
         """The f64 device, routed as ``api/api.py:62-83``: fused where

@@ -112,9 +112,15 @@ def stream_ms(fn, device, calls: int = 100) -> float:
 
 
 def bench_spmv(matrix, name: str = "random", config=None, repeats: int = 50,
-               backend: str = "auto", *, device) -> BenchResult:
+               backend: str = "auto", autotune: bool = False, *, device,
+               timer=None) -> BenchResult:
     """Pack ``matrix`` on ``device``, multiply a random x, verify against
-    the CPU gold and time the SpMV and its kernel."""
+    the CPU gold and time the SpMV and its kernel.
+
+    ``autotune=True`` times candidate (G, Q) layouts on the device and
+    benchmarks the fastest (``api.autotune.autotune_pack``, its candidate
+    clock ``timer``), for the auto and fused backends in f32, as
+    ``sparsetpu/bench/harness.py:118-120``."""
     dev = require_device(device)
     ms = {}
 
@@ -130,8 +136,13 @@ def bench_spmv(matrix, name: str = "random", config=None, repeats: int = 50,
     y_gold = phase("gold", lambda: _host.spmv_gold(matrix, x))
     cfg = config or _host.SpmvConfig(dtype=matrix.dtype)
     phase("scan", lambda: _host.scan_matrix(matrix, cfg))
-    sm = phase("pack", lambda: SparseMatrix(matrix, cfg, backend=backend,
-                                            device=dev))
+    if autotune and backend in ("auto", "fused") and not cfg.is_double:
+        from ..api.autotune import autotune_pack
+        sm = phase("pack", lambda: autotune_pack(matrix, device=dev,
+                                                 timer=timer))
+    else:
+        sm = phase("pack", lambda: SparseMatrix(matrix, cfg, backend=backend,
+                                                device=dev))
 
     def first_call():       # builds the kernels' library on first use
         xp = sm.prepare_x(x)

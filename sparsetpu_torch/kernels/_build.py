@@ -3,7 +3,8 @@
 The fused SpMV, the forward, the k-plane forward and the final template
 their kernels on the real type: one source holds a kernel's f32 and f64
 (native FP64) forms, each behind its own entry point.  The BSR partials
-(``bsr_spmv.cu``) are f32 only, as the TPU's BSR device.
+(``bsr_spmv.cu``) are f32 only, as the TPU's BSR device; the stage ladder
+(``micro_ladder.cu``, ``bench/micro.py``) is a measurement kernel.
 
 ``nvcc`` compiles ``sparsetpu_torch/csrc/*.cu`` for ``sm_90a`` into
 ``build/sparsetpu_torch/`` beside the package, at first use: one compiler
@@ -134,6 +135,8 @@ def library() -> _Library:
     lib.gstream_spmm_f64_launch.argtypes = [p] * 5 + [ll] + [i] * 4 + [p]
     lib.bsr_spmv_launch.restype = i
     lib.bsr_spmv_launch.argtypes = [p] * 4 + [ll, p]
+    lib.micro_ladder_launch.restype = i
+    lib.micro_ladder_launch.argtypes = [i] + [p] * 6 + [ll] + [i] * 3 + [p]
     lib.sparsetpu_error_string.restype = ctypes.c_char_p
     lib.sparsetpu_error_string.argtypes = [i]
     _LIBRARY.lib, _LIBRARY.path = lib, path

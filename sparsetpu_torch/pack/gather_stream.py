@@ -406,14 +406,16 @@ def _pack_block_v2_numpy(brows, bcols, bvals, nr_rows, value_dtype, q,
 
 def _choose_layout(matrix: CSRMatrix, tiles_per_step: int = 128,
                    q_candidates=(2, 4, 8),
-                   g_cap: int = MAX_G) -> Tuple[int, int]:
+                   g_cap: int = MAX_G,
+                   rates=None) -> Tuple[int, int]:
     """Pick the column-window group count G and the row-pad quantum Q
     jointly from the (row, window) nnz histogram: predicted time =
     slot count (including per-block tile padding to tiles_per_step
     multiples and an empirical matching-spill inflation per Q) over the
     measured slot rate, plus a finish term per chunk (more chunks =
-    more reduction children).  Rates come from pack.rates (device-keyed,
-    autotune-refreshable)."""
+    more reduction children).  Rates come from ``rates`` (a
+    ``pack.rates.refresh_rates`` table) when given, else pack.rates'
+    default table."""
     from .rates import slot_rate, MATCH_INFLATION, FINISH_NS_PER_CHILD
 
     need = max(1, -(-matrix.nr_cols // (CHUNK * STRIPE)))
@@ -468,7 +470,7 @@ def _choose_layout(matrix: CSRMatrix, tiles_per_step: int = 128,
             tiles_pad = (-(-tiles_blk // tiles_per_step)) * tiles_per_step
             slots = int(tiles_pad.sum()) * TILE_NNZ * MATCH_INFLATION[q]
             children = float(chunks_pair.sum())
-            t = slots / slot_rate(g, q) \
+            t = slots / slot_rate(g, q, rates=rates) \
                 + children * FINISH_NS_PER_CHILD * finish_scale
             if best_t is None or t < best_t:
                 best, best_t = (g, q), t
@@ -484,7 +486,8 @@ def pack_gstream(matrix: CSRMatrix, config: Optional[SpmvConfig] = None,
                  G: Optional[int] = None,
                  Q: Optional[int] = None,
                  GL: Optional[int] = None,
-                 slab: int = 0) -> GStreamMatrix:
+                 slab: int = 0,
+                 rates=None) -> GStreamMatrix:
     """Pack a CSR matrix into GStream (create_csr_hw_matrix analogue,
     csr_hw.cpp:377-1398, collapsed to one parameterized routine).
 
@@ -502,6 +505,10 @@ def pack_gstream(matrix: CSRMatrix, config: Optional[SpmvConfig] = None,
     (row // slab, group) instead of (group): positions stay
     row-slab-contiguous, so the flat V2 final level applies on top of
     the v2 forward kernel.
+
+    ``rates``: a (G, Q) -> Gslot/s table (``pack.rates.refresh_rates``)
+    for the layout model in place of its default table; None keeps the
+    JAX package's choice.
     """
     nr_rows, nr_cols = matrix.nr_rows, matrix.nr_cols
     if tiles_per_step is None:
@@ -528,7 +535,8 @@ def pack_gstream(matrix: CSRMatrix, config: Optional[SpmvConfig] = None,
             f"G={G} exceeds block_cols={config.block_cols} "
             f"(max {g_cap} window groups of {CHUNK * STRIPE} cols)")
     if G is None or Q is None:
-        g_m, q_m = _choose_layout(matrix, tiles_per_step, g_cap=g_cap)
+        g_m, q_m = _choose_layout(matrix, tiles_per_step, g_cap=g_cap,
+                                  rates=rates)
         G = G if G is not None else g_m
         Q = Q if Q is not None else q_m
     if Q not in VALID_Q:
