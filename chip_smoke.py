@@ -108,6 +108,15 @@ and the measurement path (``bench/micro.py``, ``pack/rates.py``,
                    nnz, each candidate's time, the pick's y against the
                    gold, then ``bench_spmv(..., autotune=True)`` on the same
                    matrix;
+  fused stages     ``bench_fused_stages`` (``bench/fused_stages.py``, the
+                   kernels of ``csrc/fused_stages.cu``): at the headline the
+                   forward alone, the forward with finish stage 1, #1's
+                   blocks and ``FusedDevice.spmv`` (y against the gold),
+                   ``spmv`` under a ``torch.profiler`` trace, and the forward
+                   at #17's five other tile-base inputs; the same split on
+                   the pwtk stand-in; the tile ladder's 8 variants at 128
+                   tiles a block (the headline's grid) and at 16.  Each
+                   kernel is held to its plain version;
   bench entry      ``python -m sparsetpu_torch.bench`` in a subprocess: its
                    last line parses, value > 0, 0 gate errors.
 
@@ -126,6 +135,7 @@ one, and without the repository beside it.
 import json
 import os
 import sys
+import tempfile
 import time
 import zlib
 
@@ -183,6 +193,21 @@ LADDER_STAGES = ("stream", "lane", "dual", "tilebase") + tuple(
 for _stage in LADDER_STAGES:
     KERNELS[f"ladder_{_stage}"] = ("sparsetpu_torch/csrc/micro_ladder.cu",
                                    "sparsetpu/bench/micro.py:95")
+# the fused kernel's stage split: the forward (#18, and #17 at its other
+# tile-base inputs), the forward with finish stage 1 (#19) and the tile
+# ladder's variants (#26, ``bench/fused_stages.py:LADDER_VARIANTS``)
+STAGES_SRC = "sparsetpu_torch/csrc/fused_stages.cu"
+KERNELS["stages_fwd"] = (STAGES_SRC, "scripts/exp_diag_r3.py:29")
+KERNELS["stages_fwd_tile_bases"] = (STAGES_SRC, "scripts/exp_asm_r5.py:70")
+KERNELS["stages_fwd_s1"] = (STAGES_SRC, "scripts/exp_diag_r5.py:48")
+STAGE_LADDER = ("full-glw16", "full-glw8", "full-glw4", "no-route", "no-tree",
+                "no-gathers", "no-sum", "bare-glw1")
+for _v in STAGE_LADDER:
+    KERNELS[f"stages_ladder_{_v}"] = (STAGES_SRC,
+                                      "scripts/exp_tile_ladder.py:61")
+# #1 back to back at the headline as PERF.md section 6 records it (NVIDIA
+# H100 80GB HBM3, 700 W): the stage split reads it again beside its phases
+FUSED_BACK_TO_BACK_REF_MS = 0.0635
 
 
 def _real(t) -> str:
@@ -327,14 +352,14 @@ class Smoke:
         import torch
         import sparsetpu_torch as st
         from sparsetpu_torch import _host
-        from sparsetpu_torch.bench import micro
+        from sparsetpu_torch.bench import fused_stages, micro
         from sparsetpu_torch.bench.harness import call_ms, stream_ms
         from sparsetpu_torch.formats.gold import spmm_gold
         from sparsetpu_torch.kernels import (bsr, f64emu, spmm, spmv_fused,
                                              spmv_gstream)
         from sparsetpu_torch.pack import final_levels, rates
         self.torch, self.st, self.h = torch, st, _host
-        self.micro, self.rates = micro, rates
+        self.micro, self.rates, self.fs = micro, rates, fused_stages
         self.fused, self.sg, self.fl = spmv_fused, spmv_gstream, final_levels
         self.f64, self.bsr = f64emu, bsr
         self.sp, self.spmm_gold = spmm, spmm_gold
@@ -366,6 +391,9 @@ class Smoke:
         self.sp.gstream_chunk_sums_multi_f64.launches = 0
         self.bsr.bsr_partials.launches = 0
         self.micro.ladder_stage.launches.clear()
+        self.fs.fused_forward.launches = 0
+        self.fs.fused_forward_stage1.launches = 0
+        self.fs.tile_ladder.launches.clear()
 
     def _counts(self):
         f = self.sg.gstream_chunk_sums.launches
@@ -389,7 +417,12 @@ class Smoke:
                 "bsr_partials": self.bsr.bsr_partials.launches,
                 "rates_forward": 0,
                 **{f"ladder_{k}": self.micro.ladder_stage.launches[k]
-                   for k in LADDER_STAGES}}
+                   for k in LADDER_STAGES},
+                "stages_fwd": self.fs.fused_forward.launches,
+                "stages_fwd_tile_bases": 0,
+                "stages_fwd_s1": self.fs.fused_forward_stage1.launches,
+                **{f"stages_ladder_{v}": self.fs.tile_ladder.launches[v]
+                   for v in STAGE_LADDER}}
 
     def kernels_of(self, d):
         """The kernels a device's ``spmv`` launches."""
@@ -1554,6 +1587,226 @@ def autotune_main(s, m, table, small, t0):
     print(f"phase {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+# the phases of ``bench_fused_stages`` that split #1 on one pack (its
+# ``blocks+flat`` and ``blocks+flat+slice`` are views of ``blocks`` here: no
+# device work, nothing to time)
+STAGE_SPLIT = ("fwd", "fwd_s1", "blocks", "dev.spmv")
+
+
+def _stage_incidence(s, key, a):
+    """(rows, cols, values, n_out) of one stage-split kernel on its
+    arguments ``a`` as one sparse matrix over x2 (the ladder's over xw),
+    zero values dropped, through the port's own gather indexes: ``fwd``
+    chunk sum by x2 position; ``fwd_s1`` row partial by x2 position, each
+    stage-1 cell composed with the Q forward slots of the chunk it reads;
+    ``ladder:<variant>`` tile output by xw position (for ``no-sum`` sublane
+    0 alone, its output on finite inputs)."""
+    torch, d, fs = s.torch, s.dev, s.fs
+    lanes = torch.arange(128, device=d)
+    if key.startswith("ladder:"):
+        v = key.split(":", 1)[1]
+        idx = fs.ladder_gather_index(v, **a)
+        n = idx.shape[0]
+        rows = (torch.arange(n, device=d).view(-1, 1, 1) * 128
+                + lanes).expand_as(idx)
+        vals = a["values"].view(idx.shape)
+        if fs.LADDER_VARIANTS[v][0] == "no-sum":
+            idx, rows, vals = idx[:, :1], rows[:, :1], vals[:, :1]
+        keep = vals != 0
+        return rows[keep], idx[keep], vals[keep], n * 128
+    T, P = a["T"], a["P"]
+    idx = fs.forward_index(*(a[k] for k in ("values", "meta_i1", "meta_rt",
+                                            "tile_base", "x2")),
+                           T=T, GLW=a["GLW"], P=P)
+    n, Q = idx.shape[0], 8 // P
+    vals = a["values"].view(idx.shape)
+    if key == "fwd":
+        rows = ((torch.arange(n, device=d).view(-1, 1, 1) * P
+                 + torch.arange(8, device=d).view(1, -1, 1) // Q) * 128
+                + lanes).expand_as(idx)
+        keep = vals != 0
+        return rows[keep], idx[keep], vals[keep], n * P * 128
+    # fwd_s1: cell (i, f, s, l) reads chunk r of step i at lane j, the sum
+    # of tile i*T + r // P's sublanes (r % P)*Q .. + Q-1 at lane j
+    n_steps, F1_max, F1S = n // T, a["F1_max"], a["F1S"]
+    F1A = a["fin1_i1"].shape[0] // (n_steps * 8)
+    src, ok = s.fused.finish_gather_index(a, n_steps, T * P, "fin1", F1_max,
+                                          F1A)
+    r, j = src // 128, src % 128
+    step = torch.arange(n_steps, device=d).view(-1, 1, 1, 1)
+    first = ((step * T + r // P) * 8 + (r % P) * Q) * 128 + j
+    slot = first.unsqueeze(-1) + torch.arange(Q, device=d) * 128
+    out = ((step * F1S + torch.arange(F1_max, device=d).view(1, -1, 1, 1))
+           * 128 + lanes).expand_as(first).unsqueeze(-1).expand_as(slot)
+    keep = ok.unsqueeze(-1).expand_as(slot)
+    slot, out = slot[keep], out[keep]
+    cols, vals = idx.reshape(-1)[slot], vals.reshape(-1)[slot]
+    keep = vals != 0
+    return out[keep], cols[keep], vals[keep], n_steps * F1S * 128
+
+
+def _stage_library_ms(s, key, a, ref):
+    """cuSPARSE's product of ``_stage_incidence`` with x2 (xw), checked
+    against the plain output ``ref``; its time."""
+    rows, cols, vals, n_out = _stage_incidence(s, key, a)
+    x = (a["xw"] if key.startswith("ladder:") else a["x2"]).reshape(-1)
+    return s.library_spmv(rows, cols, vals, (n_out, x.numel()), x,
+                          ref.reshape(-1))
+
+
+def _stage_split(s, tag, m, inp, profile):
+    """The stage split of one pack driven as a main path (with
+    ``FusedDevice.spmv`` under a profiler trace when ``profile``), the
+    forward kernels held to their plain versions, y from ``spmv`` held to
+    the gold; returns the phases."""
+    fs = s.fs
+    dev = inp["device"]
+    p = dev.meta
+    expected = {"stages_fwd", "fused_spmv"} | (
+        set() if p.fin_direct else {"stages_fwd_s1"})
+    with tempfile.TemporaryDirectory() as prof:
+        res = s.drive(tag, lambda: fs.bench_fused_stages(
+            dev, device=s.dev, only=STAGE_SPLIT,
+            profile_dir=prof if profile else None, timer=_cpu_timer(s),
+            verbose=True), expected)
+    if profile:
+        s.profile(tag + ", spmv", lambda: dev.spmv(inp["x2"],
+                                                   x_is_packed=True))
+    for key, fn, ref in (
+            ("fwd", fs.fused_forward, fs.fused_forward_reference),
+            ("fwd_s1", fs.fused_forward_stage1,
+             fs.fused_forward_stage1_reference)):
+        if inp[key] is not None:
+            yk, yr = fn(**inp[key]), ref(**inp[key])
+            s.sync()
+            print(f"  {tag}: {key} kernel vs plain max abs "
+                  f"{_agree(yk, yr):.3e}", flush=True)
+    x = np.random.default_rng(0).standard_normal(m.nr_cols)  # stage_inputs'
+    y = dev.spmv(inp["x2"], x_is_packed=True)
+    s.sync()
+    if tuple(y.shape) != (m.nr_rows,) or not bool(y.isfinite().all()):
+        raise RuntimeError(f"{tag}: bad y, shape {tuple(y.shape)}")
+    _gold_errors(s.h, m, x, y.cpu().numpy())
+    b2b = {k: v["stream_ms"] for k, v in res.items() if "stream_ms" in v}
+    blocks, spmv = b2b["blocks"], b2b["dev.spmv"]
+    first = "fwd_s1" if "fwd_s1" in b2b else "fwd"
+    parts = [("forward and stage 1" if first == "fwd_s1" else "forward",
+              b2b[first]),
+             ("stage 2 with its atomics", blocks - b2b[first]),
+             ("assembly", spmv - blocks)]
+    print(f"  {tag}: y {tuple(y.shape)}, 0 errors vs spmv_gold; back to "
+          f"back, dev.spmv {spmv:.4f} ms = "
+          + " + ".join(f"{k} {v:.4f}" for k, v in parts) + " ms; the "
+          f"forward alone, its sums copied out, {b2b['fwd']:.4f} ms",
+          flush=True)
+    return res
+
+
+def fused_stages_main(s, small, t0):
+    """#17, #18, #19 and #26 on the card: ``bench_fused_stages`` as the
+    main path, in three drives at the headline (the split, with #1 and
+    ``spmv``; the forward at #17's other tile-base inputs; the tile ladder
+    at 128 and 16 tiles a block) and the split on the pwtk stand-in; then
+    each kernel held to its plain version, beside its bound and cuSPARSE's
+    product of its incidence (``_stage_incidence``) with x."""
+    fs = s.fs
+    if tuple(fs.LADDER_VARIANTS) != STAGE_LADDER:
+        raise RuntimeError(f"the ladder's variants are "
+                           f"{list(fs.LADDER_VARIANTS)}, not STAGE_LADDER")
+    m, label = fs.stage_matrix("headline", small=small)
+    inp = fs.stage_inputs(m, s.dev)
+    dev = inp["device"]
+    p = dev.meta
+    print(f"fused stages: {label}, nnz {m.nr_nzeros}, packed and uploaded "
+          f"in {time.perf_counter() - t0:.1f} s: {fs.describe(dev)}",
+          flush=True)
+    if p.fin_direct:
+        raise RuntimeError("headline: expected a finish stage 1")
+    tag = "fused stages (headline)"
+    res = _stage_split(s, tag, m, inp, profile=True)
+    ms1 = res["blocks"]["stream_ms"]
+    print(f"  #1 (fused_spmv) back to back {ms1:.4f} ms, recorded "
+          f"{FUSED_BACK_TO_BACK_REF_MS} ms: "
+          f"{ms1 / FUSED_BACK_TO_BACK_REF_MS - 1:+.2%}", flush=True)
+    res.update(s.drive(tag + ", tile bases", lambda: fs.bench_fused_stages(
+        dev, device=s.dev, only=["bases"], timer=_cpu_timer(s),
+        verbose=True),
+        {"stages_fwd_tile_bases"},
+        rename={"stages_fwd": "stages_fwd_tile_bases"}))
+    res.update(s.drive(tag + ", tile ladder", lambda: fs.bench_fused_stages(
+        dev, device=s.dev, only=["ladder"], tiles_per_block=16,
+        timer=_cpu_timer(s), verbose=True),
+        {f"stages_ladder_{v}" for v in STAGE_LADDER}))
+
+    # each kernel against its plain version on the path's inputs
+    f, s1 = inp["fwd"], inp["fwd_s1"]
+    slots = f["values"].numel()
+    bases = fs.tile_base_variants(dev)
+    for name, key, args in (
+            ("stages_fwd", "fwd", f),
+            ("stages_fwd_tile_bases", "fwd@random",
+             dict(f, **bases["random"])),
+            ("stages_fwd_s1", "fwd_s1", s1)):
+        kern, ref = ((fs.fused_forward_stage1,
+                      fs.fused_forward_stage1_reference) if key == "fwd_s1"
+                     else (fs.fused_forward, fs.fused_forward_reference))
+        yk, yr = kern(**args), ref(**args)
+        s.sync()
+        err = _agree(yk, yr)
+        lib_ms = _stage_library_ms(s, key.split("@")[0], args, yr)
+        plain_ms = s.call_ms(lambda: ref(**args), repeats=10)
+        flops = 2 * slots + (p.n_steps * p.F1_max * 1024
+                             if key == "fwd_s1" else 0)
+        s.record(name, f"{tag}, {key}, back to back", err,
+                 res[key]["stream_ms"], plain_ms, res[key]["bytes"], flops,
+                 lib_ms)
+    for v in fs.TILE_BASE_VARIANTS[1:]:
+        a = dict(f, **bases[v])
+        yk, yr = fs.fused_forward(**a), fs.fused_forward_reference(**a)
+        s.sync()
+        r = res[f"fwd@{v}"]
+        print(f"  fwd@{v}: {r['stream_ms']:.4f} ms back to back "
+              f"({r['call_ms']:.4f} a call), kernel vs plain max abs "
+              f"{_agree(yk, yr):.3e}", flush=True)
+
+    L = fs.tile_ladder_inputs(p.n_steps if s.dev.type == "cuda" else 2,
+                              device=s.dev)
+    n_tiles = L["tile_base"].numel()
+    for v in STAGE_LADDER:
+        errs = []
+        for T in (128, 16):
+            a = dict(L, tile_base=L["tile_base"].view(-1, T))
+            yk, yr = fs.tile_ladder(v, **a), fs.tile_ladder_reference(v, **a)
+            s.sync()
+            errs.append(_agree(yk, yr))
+        plain_ms = s.call_ms(lambda v=v: fs.tile_ladder_reference(v, **L),
+                             repeats=10)
+        lib_ms = _stage_library_ms(s, f"ladder:{v}", L,
+                                   fs.tile_ladder_reference(v, **L))
+        wide, fine = res[f"ladder:{v}@128"], res[f"ladder:{v}@16"]
+        print(f"  ladder {v}: {n_tiles // 128} blocks of 128 tiles "
+              f"{wide['stream_ms']:.4f} ms, {n_tiles // 16} blocks of 16 "
+              f"{fine['stream_ms']:.4f} ms back to back (bound "
+              f"{wide['bound_ms'] or float('nan'):.4f} ms)", flush=True)
+        s.record(f"stages_ladder_{v}", f"{tag}, ladder, 128 tiles a block, "
+                 f"back to back", max(errs), wide["stream_ms"], plain_ms,
+                 wide["bytes"], 2 * n_tiles * 1024, lib_ms)
+    del inp, dev, L, bases
+
+    # the same split on a SuiteSparse stand-in whose pack has a stage 1
+    name = "scircuit" if small else "pwtk"
+    t1 = time.perf_counter()
+    m, label = fs.stage_matrix(name)
+    inp = fs.stage_inputs(m, s.dev)
+    print(f"fused stages: {label}, {m.nr_rows}x{m.nr_cols} nnz "
+          f"{m.nr_nzeros}, made, packed and uploaded in "
+          f"{time.perf_counter() - t1:.1f} s: fin_direct "
+          f"{inp['device'].meta.fin_direct}; {fs.describe(inp['device'])}",
+          flush=True)
+    _stage_split(s, f"fused stages ({name})", m, inp, profile=False)
+    print(f"phase fused stages: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def bench_entry(s, t0):
     """``python -m sparsetpu_torch.bench`` in a subprocess (``--device cpu
     --small`` on a CPU rehearsal): its last line parses, value > 0, the
@@ -1859,8 +2112,10 @@ def run(device, hbm: float, small: bool = False):
     cg_df64_main(s, small, time.perf_counter())
     spgemm_main(s, small, time.perf_counter())
 
-    # ---- the stage ladder (#15) and the port's bench line
+    # ---- the stage ladder (#15), the fused kernel's stage split (#17-#19,
+    # #26) and the port's bench line
     ladder_main(s, small, time.perf_counter())
+    fused_stages_main(s, small, time.perf_counter())
     bench_entry(s, time.perf_counter())
 
     missing = sorted(set(KERNELS) - set(s.records))

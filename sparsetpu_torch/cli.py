@@ -41,6 +41,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--repeats", type=int, default=50,
                    help="timed calls (median reported)")
+    p.add_argument("--profile", type=str, default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the benchmark "
+                        "into DIR (a Chrome trace: chrome://tracing, "
+                        "Perfetto)")
     return p
 
 
@@ -50,6 +54,7 @@ def main(argv=None) -> int:
     from . import _host
     from .bench.harness import bench_spmv
     from .utils.device import require_device
+    from .utils.timing import maybe_profiler_trace
 
     device = require_device(args.device)
     dtype = np.float64 if args.double else np.float32
@@ -76,9 +81,12 @@ def main(argv=None) -> int:
 
     cfg = _host.SpmvConfig(dtype=dtype, vf=args.vf,
                            num_partitions=args.partitions)
-    result = bench_spmv(matrix, name=name, config=cfg,
-                        repeats=args.repeats, backend=args.backend,
-                        device=device)
+    with maybe_profiler_trace(args.profile):
+        result = bench_spmv(matrix, name=name, config=cfg,
+                            repeats=args.repeats, backend=args.backend,
+                            device=device)
+    if args.profile:
+        print(f"profiler trace written to {args.profile}")
     print(result.report())
     return 0 if result.verify_errors == 0 else 1
 

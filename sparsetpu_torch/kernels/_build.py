@@ -4,7 +4,9 @@ The fused SpMV, the forward, the k-plane forward and the final template
 their kernels on the real type: one source holds a kernel's f32 and f64
 (native FP64) forms, each behind its own entry point.  The BSR partials
 (``bsr_spmv.cu``) are f32 only, as the TPU's BSR device; the stage ladder
-(``micro_ladder.cu``, ``bench/micro.py``) is a measurement kernel.
+(``micro_ladder.cu``, ``bench/micro.py``) and the fused kernel's stage
+split (``fused_stages.cu``, ``bench/fused_stages.py``) are measurement
+kernels.
 
 ``nvcc`` compiles ``sparsetpu_torch/csrc/*.cu`` for ``sm_90a`` into
 ``build/sparsetpu_torch/`` beside the package, at first use: one compiler
@@ -137,6 +139,10 @@ def library() -> _Library:
     lib.bsr_spmv_launch.argtypes = [p] * 4 + [ll, p]
     lib.micro_ladder_launch.restype = i
     lib.micro_ladder_launch.argtypes = [i] + [p] * 6 + [ll] + [i] * 3 + [p]
+    lib.fused_stage_launch.restype = i
+    lib.fused_stage_launch.argtypes = [i] + [p] * 8 + [i] * 8 + [p]
+    lib.tile_ladder_launch.restype = i
+    lib.tile_ladder_launch.argtypes = [i] + [p] * 6 + [i] * 4 + [p]
     lib.sparsetpu_error_string.restype = ctypes.c_char_p
     lib.sparsetpu_error_string.argtypes = [i]
     _LIBRARY.lib, _LIBRARY.path = lib, path

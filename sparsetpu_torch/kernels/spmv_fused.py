@@ -109,6 +109,69 @@ def _named(*inputs) -> dict:
     return dict(zip((name for name, _ in _KERNEL_INPUTS), inputs))
 
 
+def forward_gather_index(t: dict, GLW: int) -> torch.Tensor:
+    """The x element each slot of the fused kernels' forward reads: slot (s,
+    l) of tile t reads x2[(8*tile_base + cell(i1[s, j], GLW))*128 + j], j =
+    rt[s, l] & 127.  ``t`` holds meta_i1, meta_rt and tile_base.  Returns
+    the flat index into x2 (rows of 128), (n_tiles, 8, 128)."""
+    i1 = t["meta_i1"].view(-1, CHUNK, LANES).long()
+    rt = t["meta_rt"].view(-1, CHUNK, LANES).long() & 127
+    c = torch.gather(i1, 2, rt)
+    xrow = CHUNK * t["tile_base"].reshape(-1, 1, 1).long() + _cell(c, GLW)
+    return xrow * LANES + rt
+
+
+def forward_sums(t: dict, X: torch.Tensor, n_steps: int, *, T, GLW,
+                 P) -> torch.Tensor:
+    """The fused kernels' forward in plain PyTorch, over all steps and
+    planes at once: each slot reads X at ``forward_gather_index`` and each
+    chunk's Q sublanes sum.  ``t`` holds the values, meta_i1, meta_rt and
+    tile_base; X is row-major (cols, k).  Returns the chunk sums (n_steps,
+    T*P, 128, k), in X's real type."""
+    k = X.shape[1]
+    prod = t["values"].view(-1, CHUNK, LANES, 1) * X[forward_gather_index(
+        t, GLW)]
+    return prod.view(n_steps, T * P, CHUNK // P, LANES, k).sum(2)
+
+
+def finish_gather_index(t: dict, n_steps: int, rows: int, stage: str, F: int,
+                        FA: int) -> tuple:
+    """The source element each cell of finish stage ``stage`` (fin1 or fin2)
+    reads: (flat index into a step's (rows*128) source, reads a value), both
+    (n_steps, F, 8, 128); a drained cell (c < 0) reads nothing."""
+    i1 = t[f"{stage}_i1"].view(n_steps, FA, CHUNK, LANES)[:, :F].long()
+    rt = t[f"{stage}_rt"].view(n_steps, FA, CHUNK, LANES)[:, :F].long() & 127
+    c = torch.gather(i1, 3, rt)
+    return _cell(c, rows // CHUNK) * LANES + rt, c >= 0
+
+
+def _finish_gather(t: dict, src: torch.Tensor, n_steps: int, rows: int,
+                   stage: str, F: int, FA: int) -> torch.Tensor:
+    """(n_steps, F, 8, 128, k) cell values finish stage ``stage`` (fin1 or
+    fin2) gathers from ``src`` (n_steps, rows, 128, k); drained cells read
+    0."""
+    k = src.shape[-1]
+    idx, ok = finish_gather_index(t, n_steps, rows, stage, F, FA)
+    got = torch.gather(src.reshape(n_steps, rows * LANES, k), 1,
+                       idx.reshape(n_steps, -1, 1).expand(-1, -1, k))
+    return torch.where(ok.unsqueeze(-1), got.view(*idx.shape, k),
+                       torch.zeros((), dtype=src.dtype, device=src.device))
+
+
+def stage1_partials(t: dict, scratch: torch.Tensor, n_steps: int, F1A: int,
+                    *, F1_max, F1S) -> torch.Tensor:
+    """The fused kernels' finish stage 1 in plain PyTorch: each row's chunk
+    sums in ``scratch`` (``forward_sums``' output) collapse to one partial.
+    ``t`` holds fin1_i1 and fin1_rt.  Returns (n_steps, F1S, 128, k), rows
+    past F1_max zero."""
+    n, rows, _, k = scratch.shape
+    src = torch.zeros(n, F1S, LANES, k, dtype=scratch.dtype,
+                      device=scratch.device)
+    src[:, :F1_max] = _finish_gather(t, scratch, n_steps, rows, "fin1",
+                                     F1_max, F1A).sum(2)
+    return src
+
+
 def _reference(t: dict, X: torch.Tensor, n_steps: int, F1A: int, F2A: int,
                *, T, GLW, P, F1_max, F2_max, F1S, OBp, n_slabs,
                fin_direct) -> torch.Tensor:
@@ -117,34 +180,14 @@ def _reference(t: dict, X: torch.Tensor, n_steps: int, F1A: int, F2A: int,
     row-major (cols, k); returns the slab blocks (n_slabs*OBp*128, k), in
     X's real type."""
     dev, k, real = X.device, X.shape[1], X.dtype
-    SR = T * P
-    # forward: slot (s, l) reads X[(8*tile_base + cell(i1[s, j]))*128 + j]
-    i1 = t["meta_i1"].view(-1, CHUNK, LANES).long()
-    rt = t["meta_rt"].view(-1, CHUNK, LANES).long() & 127
-    c = torch.gather(i1, 2, rt)
-    xrow = CHUNK * t["tile_base"].reshape(-1, 1, 1).long() + _cell(c, GLW)
-    prod = t["values"].view(-1, CHUNK, LANES, 1) * X[xrow * LANES + rt]
-    scratch = prod.view(n_steps, SR, CHUNK // P, LANES, k).sum(2)
-
-    def finish(src, rows, stage, F, FA):
-        """(n_steps, F, 8, 128, k) cell values a finish stage gathers."""
-        i1 = t[f"{stage}_i1"].view(n_steps, FA, CHUNK, LANES)[:, :F].long()
-        rt = t[f"{stage}_rt"].view(n_steps, FA, CHUNK, LANES)[:, :F].long() \
-            & 127
-        c = torch.gather(i1, 3, rt)
-        idx = (_cell(c, rows // CHUNK) * LANES + rt).reshape(n_steps, -1, 1)
-        got = torch.gather(src.reshape(n_steps, rows * LANES, k), 1,
-                           idx.expand(-1, -1, k)).view(*c.shape, k)
-        return torch.where((c >= 0).unsqueeze(-1), got,
-                           torch.zeros((), dtype=real, device=dev))
-
+    scratch = forward_sums(t, X, n_steps, T=T, GLW=GLW, P=P)
     if fin_direct:
-        src, rows = scratch, SR
+        src, rows = scratch, T * P
     else:
-        src = torch.zeros(n_steps, F1S, LANES, k, dtype=real, device=dev)
-        src[:, :F1_max] = finish(scratch, SR, "fin1", F1_max, F1A).sum(2)
+        src = stage1_partials(t, scratch, n_steps, F1A, F1_max=F1_max,
+                              F1S=F1S)
         rows = F1S
-    add = finish(src, rows, "fin2", F2_max, F2A)
+    add = _finish_gather(t, src, n_steps, rows, "fin2", F2_max, F2A)
     sub = torch.arange(CHUNK, device=dev).view(1, 1, CHUNK, 1)
     lane = torch.arange(LANES, device=dev).view(1, 1, 1, LANES)
     dest = (t["step_slab"].long().view(-1, 1, 1, 1) * OBp * LANES

@@ -29,6 +29,7 @@ from sparsetpu.pack.fused import MAX_RESIDENT_COLS, pack_fused
 from sparsetpu.utils.config import SpmvConfig
 import sparsetpu_torch as st
 from sparsetpu_torch.kernels.spmv_coo import spmv_chunked
+from test_torch_fused import native_engines_first  # noqa: F401 (autouse)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

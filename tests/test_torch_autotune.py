@@ -18,6 +18,7 @@ from sparsetpu_torch import _host
 from sparsetpu_torch.bench.harness import bench_spmv
 from sparsetpu_torch.kernels.spmv_gstream import GStreamDevice
 from sparsetpu_torch.pack.rates import RATE_COMBOS
+from test_torch_fused import native_engines_first  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -30,6 +30,7 @@ import sparsetpu_torch as st
 from sparsetpu_torch import _host
 from sparsetpu_torch.kernels import bsr
 from sparsetpu_torch.pack import final_levels as fl
+from test_torch_fused import native_engines_first  # noqa: F401 (autouse)
 
 CASES = {
     "banded 300x300 bw 10": lambda: banded_csr(300, 300, bandwidth=10),

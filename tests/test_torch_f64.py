@@ -50,7 +50,7 @@ from sparsetpu_torch.kernels import spmv_fused as sf
 from sparsetpu_torch.kernels import spmv_gstream as sg
 from sparsetpu_torch.kernels.spmm import gstream_chunk_sums_multi_reference
 from sparsetpu_torch.pack import final_levels as fl
-from test_torch_fused import REGIMES
+from test_torch_fused import REGIMES, native_engines_first  # noqa: F401
 
 
 def _close(y, ref, rel=1e-11):

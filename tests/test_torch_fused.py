@@ -15,6 +15,7 @@ JAX: ``python -m pytest tests/test_torch_fused.py -m gpu --noconftest``.
 """
 
 import dataclasses
+import time
 
 import numpy as np
 import pytest
@@ -69,6 +70,47 @@ REGIMES = {
     "empty_trailing_slabs": (
         _empty_trailing_slabs, dict(sgrp=1), lambda p: p.n_slabs >= 2),
 }
+
+
+def native_engines(timeout: float = 300.0) -> None:
+    """Hold both packages to their native (C++) pack engines before a test
+    compares a pack or a final level built by the JAX package with the
+    port's, or a regime the native engine packs.
+
+    Each package builds its library at first use.  The JAX package's
+    ``make`` links ``sparsetpu/native/libsparsetpu_native.so`` in place,
+    and its ``native.packer.available()`` turns any error into False.  A
+    test process that loads the file while another process's link is still
+    writing it (an empty file: ``ctypes.CDLL`` raises "file too short")
+    would pack with the NumPy engine, another layout.  So wait until both
+    ``available()`` are True in this process (a library once loaded stays
+    loaded), retrying up to ``timeout`` seconds, and fail naming the
+    engine that never loaded: two engines are never compared."""
+    import sparsetpu.native.packer as jax_packer
+    from sparsetpu_torch.native import packer as port_packer
+    deadline = time.monotonic() + timeout
+    while True:
+        down = [name for name, mod in (
+            ("sparsetpu (JAX package) native packer", jax_packer),
+            ("sparsetpu_torch native packer", port_packer))
+            if not mod.available()]
+        if not down:
+            return
+        if time.monotonic() > deadline:
+            pytest.fail(f"{' and '.join(down)} not loadable after "
+                        f"{timeout:.0f} s: a comparison with it would hold "
+                        f"the NumPy engine's packs to the native engine's")
+        time.sleep(0.2)
+
+
+@pytest.fixture(autouse=True)
+def native_engines_first(request):
+    """``native_engines`` before every test here that is not marked
+    ``gpu`` (those also run where JAX is absent), and in every test file
+    that imports this fixture: the files that compare packs, finals or
+    routes with the JAX package's."""
+    if request.node.get_closest_marker("gpu") is None:
+        native_engines()
 
 
 def _pack(case, pack=pack_fused):

@@ -33,6 +33,7 @@ import sparsetpu_torch.native.final as port_native_final
 from sparsetpu_torch import _host
 from sparsetpu_torch.kernels import spmv_gstream as sg
 from sparsetpu_torch.pack import final_levels as fl
+from test_torch_fused import native_engines_first  # noqa: F401 (autouse)
 
 RTOL = 1e-5
 

@@ -21,6 +21,7 @@ from sparsetpu_torch import _host
 from sparsetpu_torch.kernels import _build
 from sparsetpu_torch.kernels.spmv_fused import fused_spmv
 from sparsetpu_torch.utils import device as device_mod
+from test_torch_fused import native_engines
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -121,6 +122,7 @@ def test_port_sources_never_import_jax():
 
 
 def test_host_pack_is_byte_identical_to_jax_package():
+    native_engines()
     m = random_csr(1500, 9000, density=0.004, seed=2, dtype=np.float32)
     a, b = pack_fused(m), _host.pack_fused(m)
     for k in ("values", "meta_i1", "meta_rt", "tile_base", "fin1_i1",

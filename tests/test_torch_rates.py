@@ -30,6 +30,7 @@ from sparsetpu_torch import _host
 from sparsetpu_torch.kernels import spmv_gstream as sg
 from sparsetpu_torch.pack import gather_stream as port_gs
 from sparsetpu_torch.pack import rates
+from test_torch_fused import native_engines_first  # noqa: F401 (autouse)
 
 N_TILES = 16
 

@@ -42,7 +42,7 @@ from sparsetpu_torch.kernels import spmv_fused as sf
 from sparsetpu_torch.kernels import spmv_gstream as sg
 from sparsetpu_torch.pack import final_levels as fl
 from test_torch_api import _heavy_matrix as _heavy_rows
-from test_torch_fused import REGIMES
+from test_torch_fused import REGIMES, native_engines_first  # noqa: F401
 from test_torch_gstream import _heavy_matrix
 
 
