@@ -117,6 +117,18 @@ and the measurement path (``bench/micro.py``, ``pack/rates.py``,
                    the pwtk stand-in; the tile ladder's 8 variants at 128
                    tiles a block (the headline's grid) and at 16.  Each
                    kernel is held to its plain version;
+  fused prototypes ``bench_fused_proto`` (``bench/fused_proto.py``, the
+                   kernels of ``csrc/fused_proto.cu`` and ``tile_forward``
+                   of ``csrc/fused_stages.cu``): #20's one-kernel SpMV
+                   prototype at the script's 24 x 448 tiles (its scratch
+                   in shared memory, then in a workspace) and as 192 x
+                   56; #21's forward at GLW 1, 2, 4, 8, 16; the span
+                   histograms of the headline and four stand-ins; the
+                   headline's narrow and wide tiles at GLW 16, the narrow
+                   ones at GLW 8; #24's forward and selects-first tile; #25's
+                   stream sums in 7 and 2 streams, 2 folded by 2 and 4, at
+                   106 steps (in the L2) and 848, the kernels line's.  Each
+                   kernel is held to its plain version;
   bench entry      ``python -m sparsetpu_torch.bench`` in a subprocess: its
                    last line parses, value > 0, 0 gate errors.
 
@@ -205,6 +217,26 @@ STAGE_LADDER = ("full-glw16", "full-glw8", "full-glw4", "no-route", "no-tree",
 for _v in STAGE_LADDER:
     KERNELS[f"stages_ladder_{_v}"] = (STAGES_SRC,
                                       "scripts/exp_tile_ladder.py:61")
+# the fused-redesign prototypes: #20 at its two shapes (the script's first,
+# also with its scratch in a device-memory workspace),
+# #21 at each GLW the reference builds, #24's selects-first tile (its A is
+# glw_16's kernel) and #25's four stream forms
+PROTO_SRC = "sparsetpu_torch/csrc/fused_proto.cu"
+KERNELS["proto_fused_24x448"] = (PROTO_SRC, "scripts/exp_fused.py:34")
+KERNELS["proto_fused_24x448_workspace"] = (PROTO_SRC,
+                                           "scripts/exp_fused.py:34")
+KERNELS["proto_fused_192x56"] = (PROTO_SRC, "scripts/exp_fused.py:34")
+PROTO_GLWS = (1, 2, 4, 8, 16)
+for _g in PROTO_GLWS:
+    KERNELS[f"glw_{_g}"] = (STAGES_SRC, "scripts/exp_glw.py:26")
+KERNELS["selfirst_b"] = (STAGES_SRC, "scripts/exp_selfirst.py:66")
+# kernels-line name -> streams_sum form
+STREAM_KERNELS = {"streams7": "7", "streams2": "2", "streams2_s2": "2xS2",
+                  "streams2_s4": "2xS4"}
+KERNELS["streams7"] = (PROTO_SRC, "scripts/exp_streams.py:34")
+for _k in ("streams2", "streams2_s2", "streams2_s4"):
+    KERNELS[_k] = (PROTO_SRC, "scripts/exp_streams.py:51")
+TILE_ARGS = ("tile_base", "xw", "values", "i1", "rt")
 # #1 back to back at the headline as PERF.md section 6 records it (NVIDIA
 # H100 80GB HBM3, 700 W): the stage split reads it again beside its phases
 FUSED_BACK_TO_BACK_REF_MS = 0.0635
@@ -352,7 +384,7 @@ class Smoke:
         import torch
         import sparsetpu_torch as st
         from sparsetpu_torch import _host
-        from sparsetpu_torch.bench import fused_stages, micro
+        from sparsetpu_torch.bench import fused_proto, fused_stages, micro
         from sparsetpu_torch.bench.harness import call_ms, stream_ms
         from sparsetpu_torch.formats.gold import spmm_gold
         from sparsetpu_torch.kernels import (bsr, f64emu, spmm, spmv_fused,
@@ -360,6 +392,7 @@ class Smoke:
         from sparsetpu_torch.pack import final_levels, rates
         self.torch, self.st, self.h = torch, st, _host
         self.micro, self.rates, self.fs = micro, rates, fused_stages
+        self.fp = fused_proto
         self.fused, self.sg, self.fl = spmv_fused, spmv_gstream, final_levels
         self.f64, self.bsr = f64emu, bsr
         self.sp, self.spmm_gold = spmm, spmm_gold
@@ -394,6 +427,9 @@ class Smoke:
         self.fs.fused_forward.launches = 0
         self.fs.fused_forward_stage1.launches = 0
         self.fs.tile_ladder.launches.clear()
+        self.fs.tile_forward.launches.clear()
+        self.fp.fused_proto.launches.clear()
+        self.fp.streams_sum.launches.clear()
 
     def _counts(self):
         f = self.sg.gstream_chunk_sums.launches
@@ -422,7 +458,16 @@ class Smoke:
                 "stages_fwd_tile_bases": 0,
                 "stages_fwd_s1": self.fs.fused_forward_stage1.launches,
                 **{f"stages_ladder_{v}": self.fs.tile_ladder.launches[v]
-                   for v in STAGE_LADDER}}
+                   for v in STAGE_LADDER},
+                "proto_fused_24x448": self.fp.fused_proto.launches["shared"],
+                "proto_fused_24x448_workspace":
+                    self.fp.fused_proto.launches["global"],
+                "proto_fused_192x56": 0,
+                **{f"glw_{g}": self.fs.tile_forward.launches[f"full-glw{g}"]
+                   for g in PROTO_GLWS},
+                "selfirst_b": self.fs.tile_forward.launches["selfirst-glw16"],
+                **{k: self.fp.streams_sum.launches[f]
+                   for k, f in STREAM_KERNELS.items()}}
 
     def kernels_of(self, d):
         """The kernels a device's ``spmv`` launches."""
@@ -1604,16 +1649,9 @@ def _stage_incidence(s, key, a):
     torch, d, fs = s.torch, s.dev, s.fs
     lanes = torch.arange(128, device=d)
     if key.startswith("ladder:"):
-        v = key.split(":", 1)[1]
-        idx = fs.ladder_gather_index(v, **a)
-        n = idx.shape[0]
-        rows = (torch.arange(n, device=d).view(-1, 1, 1) * 128
-                + lanes).expand_as(idx)
-        vals = a["values"].view(idx.shape)
-        if fs.LADDER_VARIANTS[v][0] == "no-sum":
-            idx, rows, vals = idx[:, :1], rows[:, :1], vals[:, :1]
-        keep = vals != 0
-        return rows[keep], idx[keep], vals[keep], n * 128
+        kind, glw = fs.LADDER_VARIANTS[key.split(":", 1)[1]]
+        return _tile_incidence(s, kind, glw, a,
+                               1 if kind == "no-sum" else 8)
     T, P = a["T"], a["P"]
     idx = fs.forward_index(*(a[k] for k in ("values", "meta_i1", "meta_rt",
                                             "tile_base", "x2")),
@@ -1643,6 +1681,22 @@ def _stage_incidence(s, key, a):
     cols, vals = idx.reshape(-1)[slot], vals.reshape(-1)[slot]
     keep = vals != 0
     return out[keep], cols[keep], vals[keep], n_steps * F1S * 128
+
+
+def _tile_incidence(s, kind, glw, a, sublanes=8):
+    """(rows, cols, values, n_out) of the ladder kernel's ``kind`` at
+    ``glw`` on its arguments ``a`` as one sparse matrix over xw: tile
+    output by xw position (``tile_gather_index``), the first ``sublanes``
+    of each tile, zero values dropped."""
+    torch, d = s.torch, s.dev
+    idx = s.fs.tile_gather_index(kind, glw, *(a[k] for k in TILE_ARGS))
+    n = idx.shape[0]
+    rows = (torch.arange(n, device=d).view(-1, 1, 1) * 128
+            + torch.arange(128, device=d)).expand_as(idx)
+    vals = a["values"].view(idx.shape)
+    idx, rows, vals = (t[:, :sublanes] for t in (idx, rows, vals))
+    keep = vals != 0
+    return rows[keep], idx[keep], vals[keep], n * 128
 
 
 def _stage_library_ms(s, key, a, ref):
@@ -1805,6 +1859,174 @@ def fused_stages_main(s, small, t0):
           flush=True)
     _stage_split(s, f"fused stages ({name})", m, inp, profile=False)
     print(f"phase fused stages: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _proto_incidence(s, a):
+    """(rows, cols, values, n_out) of #20 on its arguments ``a`` as one
+    sparse matrix over xw: each final slot's 0/1 read of a scratch row
+    composed with the 8 forward slots that row sums (``proto_indexes``),
+    zero values dropped."""
+    torch, d = s.torch, s.dev
+    ix = s.fp.proto_indexes(**a)
+    n_out = ix["fin_src"].shape[0]
+    tile = (ix["fin_src"] // 128).unsqueeze(-1)
+    j = (ix["fin_src"] % 128).unsqueeze(-1)
+    sub = torch.arange(8, device=d)
+    cols = ix["fwd_idx"][tile, sub, j]
+    vals = (a["values"].view(ix["fwd_ok"].shape) * ix["fwd_ok"])[tile, sub, j]
+    rows = (torch.arange(n_out, device=d).view(-1, 1, 1, 1) * 128
+            + torch.arange(128, device=d).view(1, 1, -1, 1)).expand_as(cols)
+    keep = ix["fin_ok"].unsqueeze(-1) & (vals != 0)
+    return rows[keep], cols[keep], vals[keep], n_out * 128
+
+
+def _tile_check(s, kind, glw, r, tag):
+    """One ``tile_forward`` phase's kernel against its plain version, its
+    plain time and cuSPARSE's product of its incidence with xw."""
+    fs = s.fs
+    a = {k: r["args"][k] for k in TILE_ARGS}
+    yk, yr = fs.tile_forward(kind, glw, **a), \
+        fs.tile_forward_reference(kind, glw, **a)
+    s.sync()
+    err = _agree(yk, yr)
+    plain_ms = s.call_ms(lambda: fs.tile_forward_reference(kind, glw, **a),
+                         repeats=10)
+    rows, cols, vals, n_out = _tile_incidence(s, kind, glw, a)
+    lib_ms = s.library_spmv(rows, cols, vals, (n_out, a["xw"].numel()),
+                            a["xw"].reshape(-1), yr.reshape(-1))
+    print(f"  {tag}: {r['stream_ms']:.4f} ms back to back "
+          f"({r['call_ms']:.4f} a call), {r['ns_tile']:.3f} ns a tile, "
+          f"{r['gslot_s']:.1f} Gslot/s, kernel vs plain max abs {err:.3e}",
+          flush=True)
+    return err, plain_ms, lib_ms
+
+
+def fused_proto_main(s, small, t0):
+    """#20, #21, #24 and #25 on the card: ``bench_fused_proto`` as the
+    main path, in two drives (#20 at the script's shape; then the rest,
+    #20's count moved to its 192 x 56 entry); then each kernel held to its
+    plain version, beside its bound and a library call: cuSPARSE's product
+    of its incidence with xw (#20: the final's 0/1 reads composed with the
+    forward's), ``torch.sum`` of the streams (#25)."""
+    fp, fs, torch = s.fp, s.fs, s.torch
+    script, fine = fp.proto_shapes(small)
+    opts = dict(device=s.dev, small=small, timer=_cpu_timer(s),
+                verbose=True)
+    res = s.drive(f"fused prototypes, proto@{script}",
+                  lambda: fp.bench_fused_proto(
+                      only=[f"proto@{script}", f"proto@{script}:workspace"],
+                      **opts),
+                  {"proto_fused_24x448", "proto_fused_24x448_workspace"})
+    res.update(s.drive(
+        "fused prototypes", lambda: fp.bench_fused_proto(
+            only=[f"proto@{fine}", "glw", "spans", "span-class", "selfirst",
+                  "streams"], **opts),
+        {"proto_fused_192x56", "selfirst_b", *(f"glw_{g}" for g in
+                                               PROTO_GLWS),
+         *STREAM_KERNELS}, rename={"proto_fused_24x448":
+                                   "proto_fused_192x56"}))
+
+    for name, label in zip(("proto_fused_24x448", "proto_fused_192x56"),
+                           (script, fine)):
+        r = res[f"proto@{label}"]
+        a = r["args"]
+        yk, yr = fp.fused_proto(**a), fp.fused_proto_reference(**a)
+        s.sync()
+        err = _agree(yk, yr)
+        plain_ms = s.call_ms(
+            lambda: fp.fused_proto_reference(**a), repeats=10)
+        rows, cols, vals, n_out = _proto_incidence(s, a)
+        lib_ms = s.library_spmv(rows, cols, vals, (n_out, a["xw"].numel()),
+                                a["xw"].reshape(-1), yr.reshape(-1))
+        n_slabs, ST = a["tile_base"].shape
+        print(f"  proto@{label}: {n_slabs} blocks of {ST} super-tiles, "
+              f"{r['stream_ms']:.4f} ms back to back ({r['call_ms']:.4f} a "
+              f"call), {r['gslot_s']:.1f} Gslot/s, y {tuple(yk.shape)}, "
+              f"kernel vs plain max abs {err:.3e}", flush=True)
+        flops = 2 * a["values"].numel() + yk.numel() * 8
+        s.record(name, f"fused prototypes, proto@{label}, back to back", err,
+                 r["stream_ms"], plain_ms, r["bytes"], flops, lib_ms)
+        if label != script:
+            continue
+        # the same function and inputs, the scratch in a workspace
+        rw = res[f"proto@{script}:workspace"]
+        yw = fp.proto_launch(**a, workspace=True)
+        s.sync()
+        err = _agree(yw, yr)
+        print(f"  proto@{script}:workspace: {rw['stream_ms']:.4f} ms back to "
+              f"back ({rw['call_ms']:.4f} a call), "
+              f"{rw['stream_ms'] / r['stream_ms']:.3f}x the shared scratch, "
+              f"kernel vs plain max abs {err:.3e}", flush=True)
+        s.record(f"{name}_workspace",
+                 f"fused prototypes, proto@{script}:workspace, back to back",
+                 err, rw["stream_ms"], plain_ms, rw["bytes"], flops, lib_ms)
+
+    for g in PROTO_GLWS:
+        r = res[f"glw@{g}"]
+        err, plain_ms, lib_ms = _tile_check(s, "full", g, r, f"glw@{g}")
+        s.record(f"glw_{g}", f"fused prototypes, glw@{g}, back to back",
+                 err, r["stream_ms"], plain_ms, r["bytes"],
+                 2 * r["args"]["values"].numel(), lib_ms)
+    print(f"  glw@12: {res['glw@12']['skipped']}", flush=True)
+
+    ms = []
+    for c, g in (("narrow", 16), ("wide", 16), ("narrow", 8)):
+        r = res[f"span-class:{c}@{g}"]
+        _tile_check(s, "full", g, r, f"span-class:{c}@{g} "
+                    f"({r['distinct_tiles']} distinct tiles)")
+        ms.append(r["stream_ms"])
+    n16, w16, n8 = ms
+    print(f"  span classes at 16 tiles a block: narrow {n16:.4f} ms, wide "
+          f"{w16:.4f} ms ({w16 / n16 - 1:+.2%}); the control, narrow at GLW "
+          f"8, {n8:.4f} ms ({n8 / n16 - 1:+.2%}: "
+          f"{'within' if abs(n8 / n16 - 1) <= 0.02 else 'outside'} 2%)",
+          flush=True)
+
+    ra, rb = res["selfirst@A"], res["selfirst@B"]
+    _tile_check(s, "full", 16, ra, "selfirst@A (full, GLW 16)")
+    err, plain_ms, lib_ms = _tile_check(s, "selfirst", 16, rb,
+                                        "selfirst@B (selects-first)")
+    print(f"  selfirst: B/A {rb['stream_ms'] / ra['stream_ms']:.3f}",
+          flush=True)
+    s.record("selfirst_b", "fused prototypes, selfirst@B, back to back", err,
+             rb["stream_ms"], plain_ms, rb["bytes"],
+             2 * rb["args"]["values"].numel(), lib_ms)
+
+    for name, form in STREAM_KERNELS.items():
+        # the script's 106 steps sit in the L2 back to back, so the line
+        # records the run past it, which the HBM bound fits
+        near = res[f"streams@{form}"]
+        (far,) = (k for k in res if k.startswith(f"streams@{form}:"))
+        r = res[far]
+        a = r["args"]
+        yk, yr = fp.streams_sum(**a), fp.streams_sum_reference(**a)
+        s.sync()
+        err = _agree(yk, yr)
+        nb = a["n_steps"] // a["fold"]
+
+        def library(a=a, nb=nb):
+            total = a["values"].view(nb, -1, 128).sum(1)
+            for x in a["streams"]:
+                total = total + x.view(nb, -1, 128).sum(1,
+                                                        dtype=torch.float32)
+            return total
+        _agree(library(), yr[::8])
+        lib_ms = s.call_ms(library)
+        plain_ms = s.call_ms(lambda a=a: fp.streams_sum_reference(**a),
+                             repeats=10)
+        print(f"  {far}: {r['stream_ms']:.4f} ms back to back "
+              f"({r['call_ms']:.4f} a call), {r['ns_step']:.1f} ns a step, "
+              f"{r['ns_substep']:.1f} ns a sub-step; at the script's "
+              f"{near['args']['n_steps']} steps"
+              f"{' (L2-resident)' if near['l2_resident'] else ''} "
+              f"{near['stream_ms']:.4f} ms, {near['ns_substep']:.1f} ns a "
+              f"sub-step; kernel vs plain max abs {err:.3e}", flush=True)
+        s.record(name, f"fused prototypes, {far}, back to back",
+                 err, r["stream_ms"], plain_ms, r["bytes"],
+                 a["values"].numel() + sum(x.numel() for x in a["streams"]),
+                 lib_ms)
+    print(f"phase fused prototypes: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
 
 def bench_entry(s, t0):
@@ -2113,9 +2335,11 @@ def run(device, hbm: float, small: bool = False):
     spgemm_main(s, small, time.perf_counter())
 
     # ---- the stage ladder (#15), the fused kernel's stage split (#17-#19,
-    # #26) and the port's bench line
+    # #26), the fused-redesign prototypes (#20, #21, #24, #25) and the
+    # port's bench line
     ladder_main(s, small, time.perf_counter())
     fused_stages_main(s, small, time.perf_counter())
+    fused_proto_main(s, small, time.perf_counter())
     bench_entry(s, time.perf_counter())
 
     missing = sorted(set(KERNELS) - set(s.records))

@@ -32,6 +32,8 @@ and a call at a time (``call_ms``, ``bench/harness.py``):
 ``fused_forward``, ``fused_forward_stage1`` and ``tile_ladder`` launch the
 CUDA kernels for CUDA tensors (or raise) and run their plain versions
 (``*_reference``) for CPU tensors; each counts its launches.
+``tile_forward`` reaches the ladder kernel at any kind and GLW, and its
+selects-first form, for ``bench/fused_proto.py``.
 
     python -m sparsetpu_torch.bench.fused_stages [headline|NAME]
         [--only a,b] [--tiles-per-block N] [--profile DIR]
@@ -71,8 +73,10 @@ LADDER_VARIANTS = {
     "no-tree": ("no-tree", 16), "no-gathers": ("no-gathers", 16),
     "no-sum": ("no-sum", 16), "bare-glw1": ("bare", 1),
 }
+# the ladder kernel's compile-time variants by kind (``tile_forward``);
+# ``selfirst`` is #24's selects-first tile (exp_selfirst.py:66)
 _VARIANT_CODE = {"full": 0, "no-route": 1, "no-tree": 2, "no-gathers": 3,
-                 "no-sum": 4, "bare": 5}
+                 "no-sum": 4, "bare": 5, "selfirst": 6}
 LADDER_T = 128          # tiles a step (exp_tile_ladder.py:17)
 LADDER_GX8 = 800        # rows of the ladder's x window (exp_tile_ladder.py:81)
 # #17's forward inputs (exp_asm_r5.py:107-141), ``real`` the pack's own
@@ -259,13 +263,15 @@ def fused_forward_stage1(values, meta_i1, meta_rt, tile_base, fin1_i1,
 fused_forward_stage1.launches = 0
 
 
-def _check_ladder(variant, tile_base, xw, values, i1, rt) -> tuple:
-    """The tile ladder's checks; returns (kernel variant, window groups,
-    blocks, tiles a block, xw's groups)."""
-    if variant not in LADDER_VARIANTS:
-        raise ValueError(f"unknown ladder variant {variant!r} (one of "
-                         f"{list(LADDER_VARIANTS)})")
-    kind, glw = LADDER_VARIANTS[variant]
+def _check_tiles(kind, glw, tile_base, xw, values, i1, rt) -> tuple:
+    """The ladder kernel's checks for one kind at ``glw`` window groups;
+    returns (blocks, tiles a block, xw's groups)."""
+    if kind not in _VARIANT_CODE:
+        raise ValueError(f"unknown tile kind {kind!r} (one of "
+                         f"{list(_VARIANT_CODE)})")
+    if glw < 1 or glw & (glw - 1):
+        raise ValueError(f"glw={glw}: the window's cell decode masks the "
+                         f"group bits, so glw must be a power of two")
     dev = values.device
     for name, t, dt in (("tile_base", tile_base, torch.int32),
                         ("xw", xw, torch.float32),
@@ -283,18 +289,25 @@ def _check_ladder(variant, tile_base, xw, values, i1, rt) -> tuple:
     if xw.dim() != 2 or xw.shape[1] != LANES or xw.shape[0] % CHUNK or \
             xw.shape[0] < CHUNK * glw:
         raise ValueError(f"xw must be (8*gx, 128) with gx >= {glw}")
-    return kind, glw, n_blocks, T, xw.shape[0] // CHUNK
+    return n_blocks, T, xw.shape[0] // CHUNK
 
 
-def ladder_gather_index(variant, tile_base, xw, values, i1,
-                        rt) -> torch.Tensor:
-    """The flat index into xw each slot of one ladder variant reads, (n_tiles,
-    8, 128): slot (s, l) of tile t reads xw[8 b + r, j], b the tile's base
-    clamped into [0, gx - glw], j the lane route (l where the variant has
-    none), c = i1[s, j] and r its row in the window (see
-    ``csrc/fused_stages.cu``)."""
-    kind, glw, n_blocks, T, gx = _check_ladder(variant, tile_base, xw,
-                                               values, i1, rt)
+def _ladder_kind(variant) -> tuple:
+    """(kernel kind, window groups) of a tile ladder variant."""
+    if variant not in LADDER_VARIANTS:
+        raise ValueError(f"unknown ladder variant {variant!r} (one of "
+                         f"{list(LADDER_VARIANTS)})")
+    return LADDER_VARIANTS[variant]
+
+
+def tile_gather_index(kind, glw, tile_base, xw, values, i1,
+                      rt) -> torch.Tensor:
+    """The flat index into xw each slot of the ladder kernel's ``kind`` at
+    ``glw`` window groups reads, (n_tiles, 8, 128): slot (s, l) of tile t
+    reads xw[8 b + r, j], b the tile's base clamped into [0, gx - glw], j
+    the lane route (l where the kind has none), c = i1[s, j] and r its row
+    in the window (see ``csrc/fused_stages.cu``)."""
+    n_blocks, T, gx = _check_tiles(kind, glw, tile_base, xw, values, i1, rt)
     n = n_blocks * T
     dev = values.device
     b = tile_base.reshape(n, 1, 1).long().clamp(0, gx - glw)
@@ -302,29 +315,62 @@ def ladder_gather_index(variant, tile_base, xw, values, i1,
         j = torch.arange(LANES, device=dev).expand(n, CHUNK, LANES)
     else:
         j = rt.view(n, CHUNK, LANES).long() & 127
-    c = torch.gather(i1.view(n, CHUNK, LANES).long(), 2, j)
+    tiles = i1.view(n, CHUNK, LANES).long()
+    c = torch.gather(tiles, 2, j)
     if kind in ("no-tree", "bare"):
         r = c & 7
     elif kind == "no-gathers":
         r = ((c >> 3) & (glw - 1)) * CHUNK + torch.arange(
             CHUNK, device=dev).view(1, CHUNK, 1)
+    elif kind == "selfirst":
+        # the group read at the stripe cell: i1[c & 7, j] of the same tile
+        g = tiles.reshape(n, -1).gather(1, ((c & 7) * LANES + j).view(n, -1))
+        r = ((g.view_as(c) >> 3) & (glw - 1)) * CHUNK + (c & 7)
     else:
         r = ((c >> 3) & (glw - 1)) * CHUNK + (c & 7)
     return (CHUNK * b + r) * LANES + j
 
 
-def tile_ladder_reference(variant, tile_base, xw, values, i1,
-                          rt) -> torch.Tensor:
-    """Plain PyTorch version of one ladder variant over all tiles at once:
-    (n_tiles, 128) f32, each slot's value times xw at
-    ``ladder_gather_index``, summed over the tile's 8 sublanes; ``no-sum``
-    keeps sublane 0's product unless the sum is NaN."""
-    idx = ladder_gather_index(variant, tile_base, xw, values, i1, rt)
+def tile_forward_reference(kind, glw, tile_base, xw, values, i1,
+                           rt) -> torch.Tensor:
+    """Plain PyTorch version of the ladder kernel's ``kind`` at ``glw``
+    over all tiles at once: (n_tiles, 128) f32, each slot's value times xw
+    at ``tile_gather_index``, summed over the tile's 8 sublanes;
+    ``no-sum`` keeps sublane 0's product unless the sum is NaN."""
+    idx = tile_gather_index(kind, glw, tile_base, xw, values, i1, rt)
     prod = values.view(idx.shape) * xw.reshape(-1)[idx]
     total = prod.sum(1)
-    if LADDER_VARIANTS[variant][0] == "no-sum":
+    if kind == "no-sum":
         return torch.where(total.isnan(), total, prod[:, 0])
     return total
+
+
+def tile_ladder_reference(variant, tile_base, xw, values, i1,
+                          rt) -> torch.Tensor:
+    """Plain PyTorch version of one ladder variant:
+    ``tile_forward_reference`` at its kind and window."""
+    return tile_forward_reference(*_ladder_kind(variant), tile_base, xw,
+                                  values, i1, rt)
+
+
+def _launch_tiles(kind, glw, tile_base, xw, values, i1, rt) -> torch.Tensor:
+    """One launch of the ladder kernel's ``kind`` at ``glw`` on CUDA
+    tensors (or raises)."""
+    if values.device.type != "cuda":
+        raise ValueError(f"the tile kernel: unsupported device "
+                         f"{values.device}")
+    n_blocks, T, gx = _check_tiles(kind, glw, tile_base, xw, values, i1, rt)
+    lib = library().lib
+    p = ctypes.c_void_p
+    with torch.cuda.device(values.device):
+        out = torch.empty(n_blocks * T, LANES, device=values.device)
+        stream = torch.cuda.current_stream(values.device).cuda_stream
+        rc = lib.tile_ladder_launch(
+            _VARIANT_CODE[kind], p(tile_base.data_ptr()), p(xw.data_ptr()),
+            p(values.data_ptr()), p(i1.data_ptr()), p(rt.data_ptr()),
+            p(out.data_ptr()), n_blocks, T, glw, gx, p(stream))
+    check(lib, rc, f"tile kernel {kind} at glw {glw} launch")
+    return out
 
 
 def tile_ladder(variant, tile_base, xw, values, i1, rt) -> torch.Tensor:
@@ -337,25 +383,35 @@ def tile_ladder(variant, tile_base, xw, values, i1, rt) -> torch.Tensor:
     variant."""
     if values.device.type == "cpu":
         return tile_ladder_reference(variant, tile_base, xw, values, i1, rt)
-    if values.device.type != "cuda":
-        raise ValueError(f"tile_ladder: unsupported device {values.device}")
-    kind, glw, n_blocks, T, gx = _check_ladder(variant, tile_base, xw,
-                                               values, i1, rt)
-    lib = library().lib
-    p = ctypes.c_void_p
-    with torch.cuda.device(values.device):
-        out = torch.empty(n_blocks * T, LANES, device=values.device)
-        stream = torch.cuda.current_stream(values.device).cuda_stream
-        rc = lib.tile_ladder_launch(
-            _VARIANT_CODE[kind], p(tile_base.data_ptr()), p(xw.data_ptr()),
-            p(values.data_ptr()), p(i1.data_ptr()), p(rt.data_ptr()),
-            p(out.data_ptr()), n_blocks, T, glw, gx, p(stream))
-    check(lib, rc, f"tile_ladder {variant} launch")
+    out = _launch_tiles(*_ladder_kind(variant), tile_base, xw, values, i1,
+                        rt)
     tile_ladder.launches[variant] += 1
     return out
 
 
 tile_ladder.launches = collections.Counter()
+
+
+def tile_forward(kind, glw, tile_base, xw, values, i1, rt) -> torch.Tensor:
+    """The ladder kernel at any kind (``full``, the ladder's others, or
+    ``selfirst``, #24's selects-first tile) and any power-of-two ``glw``:
+    (n_tiles, 128) f32, tile_base (n_blocks, T) giving the grid.  #21's
+    GLW ladder is ``full`` at each GLW, #24's A ``full`` at 16 and its B
+    ``selfirst`` at 16.
+
+    On CUDA tensors it launches ``csrc/fused_stages.cu`` on the current
+    stream (or raises); on CPU tensors it runs ``tile_forward_reference``.
+    ``tile_forward.launches`` counts launches by ``"<kind>-glw<glw>"``,
+    apart from ``tile_ladder``'s."""
+    if values.device.type == "cpu":
+        return tile_forward_reference(kind, glw, tile_base, xw, values, i1,
+                                      rt)
+    out = _launch_tiles(kind, glw, tile_base, xw, values, i1, rt)
+    tile_forward.launches[f"{kind}-glw{glw}"] += 1
+    return out
+
+
+tile_forward.launches = collections.Counter()
 
 
 # -- inputs -------------------------------------------------------------------

@@ -14,7 +14,13 @@
 //     plus finish stage 1 (its docstring's second phase): kForward and
 //     kForwardStage1;
 //   scripts/exp_tile_ladder.py:61 build (-> :74), the forward tile's
-//     component ladder: tile_ladder_kernel, one stage a variant.
+//     component ladder: tile_ladder_kernel, one stage a variant;
+//   scripts/exp_glw.py:26 fwd_kernel (-> :66), the forward tile at GLW
+//     window groups: kFull at that GLW (cells drawn below 8 GLW, so the
+//     mask of cell() does nothing);
+//   scripts/exp_selfirst.py:44 _fwd_kernel_a and :66 _fwd_kernel_b (->
+//     :102), the forward tile and its selects-first form: kFull at GLW 16
+//     and kSelFirst.
 // The full kernel and the full SpMV are fused_spmv.cu itself, timed by the
 // caller (bench/fused_stages.py).
 //
@@ -51,7 +57,15 @@
 //   kNoSum      out = the product of sublane 0; the sum of all 8 is still
 //               formed and stored where it is NaN, a predicate on the data
 //               that finite inputs never meet, so nvcc keeps every load;
-//   kBare       GLW 1, no route: row 8 b + (c & 7), lane l.
+//   kBare       GLW 1, no route: row 8 b + (c & 7), lane l;
+//   kSelFirst   the group read at the stripe cell: with s' = c & 7, row
+//               8 b + 8 ((i1[s', j] >> 3) & (GLW - 1)) + s', lane j.  The
+//               second read is another sublane's byte of the same tile; it
+//               goes through L1, not a copy in shared memory: the first
+//               read of each sublane (c = i1[s, j], the group's 128
+//               threads over one 128-B row) has already brought the
+//               tile's 1 KB of i1 in, and a copy would cost a barrier a
+//               tile group.
 //
 // What bounds it on the card: the streams, read once: 6 B a slot (value and
 // two int8 metadata bytes; 5 B where rt is not read), 4 B a tile base, 2 B
@@ -82,7 +96,8 @@ enum Variant {
   kNoTree = 2,
   kNoGathers = 3,
   kNoSum = 4,
-  kBare = 5
+  kBare = 5,
+  kSelFirst = 6
 };
 
 __device__ __forceinline__ int cell(int c, int groups) {
@@ -180,6 +195,9 @@ tile_ladder_kernel(const int32_t* __restrict__ tile_base,
         r = c & 7;
       } else if constexpr (kVariant == kNoGathers) {
         r = ((c >> 3) & (glw - 1)) * kChunk + s;
+      } else if constexpr (kVariant == kSelFirst) {
+        const int g = i1[(tile * kChunk + (c & 7)) * kLanes + j] >> 3;
+        r = (g & (glw - 1)) * kChunk + (c & 7);
       } else {
         r = cell(c, glw);
       }
@@ -254,7 +272,8 @@ extern "C" int fused_stage_launch(int stage, const void* values,
   }
 }
 
-// variant: 0 full, 1 no-route, 2 no-tree, 3 no-gathers, 4 no-sum, 5 bare;
+// variant: 0 full, 1 no-route, 2 no-tree, 3 no-gathers, 4 no-sum, 5 bare,
+// 6 selects-first;
 // n_blocks blocks of T tiles; glw the window groups; gx xw's rows / 8.
 extern "C" int tile_ladder_launch(int variant, const void* tile_base,
                                   const void* xw, const void* values,
@@ -281,6 +300,9 @@ extern "C" int tile_ladder_launch(int variant, const void* tile_base,
     case kBare:
       return launch_ladder<kBare>(tile_base, xw, values, i1, rt, out,
                                   n_blocks, T, glw, gx, s);
+    case kSelFirst:
+      return launch_ladder<kSelFirst>(tile_base, xw, values, i1, rt, out,
+                                      n_blocks, T, glw, gx, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

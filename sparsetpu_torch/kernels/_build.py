@@ -4,9 +4,10 @@ The fused SpMV, the forward, the k-plane forward and the final template
 their kernels on the real type: one source holds a kernel's f32 and f64
 (native FP64) forms, each behind its own entry point.  The BSR partials
 (``bsr_spmv.cu``) are f32 only, as the TPU's BSR device; the stage ladder
-(``micro_ladder.cu``, ``bench/micro.py``) and the fused kernel's stage
-split (``fused_stages.cu``, ``bench/fused_stages.py``) are measurement
-kernels.
+(``micro_ladder.cu``, ``bench/micro.py``), the fused kernel's stage
+split (``fused_stages.cu``, ``bench/fused_stages.py``) and the
+fused-redesign prototypes (``fused_proto.cu``, ``bench/fused_proto.py``)
+are measurement kernels.
 
 ``nvcc`` compiles ``sparsetpu_torch/csrc/*.cu`` for ``sm_90a`` into
 ``build/sparsetpu_torch/`` beside the package, at first use: one compiler
@@ -143,6 +144,10 @@ def library() -> _Library:
     lib.fused_stage_launch.argtypes = [i] + [p] * 8 + [i] * 8 + [p]
     lib.tile_ladder_launch.restype = i
     lib.tile_ladder_launch.argtypes = [i] + [p] * 6 + [i] * 4 + [p]
+    lib.fused_proto_launch.restype = i
+    lib.fused_proto_launch.argtypes = [p] * 8 + [i] * 5 + [p]
+    lib.streams_launch.restype = i
+    lib.streams_launch.argtypes = [i, p, i, p, p, p, i, i, p]
     lib.sparsetpu_error_string.restype = ctypes.c_char_p
     lib.sparsetpu_error_string.argtypes = [i]
     _LIBRARY.lib, _LIBRARY.path = lib, path
