@@ -97,13 +97,15 @@ and the measurement path (``bench/micro.py``, ``pack/rates.py``,
                    ``csrc/micro_ladder.cu`` (stream, lane, dual, tilebase,
                    window-G from L2 and from shared memory, G = 1..32)
                    timed beside its bound, then held to ``ladder_reference``
-                   on the same inputs;
+                   on the same inputs, and each gather stage beside
+                   cuSPARSE on its incidence with xw;
   rates            ``refresh_rates`` over the 24 (G, Q) at 32768 tiles (the
                    forward kernel #3, counted as ``rates_forward``), the
                    cache in a temporary directory; #3 at two combos against
-                   its plain version; the roadNet-CA stand-in packed with the
-                   default chooser and with the card's table, each ``A @ x``
-                   against the gold;
+                   its plain version, and at G = 8, Q = 2 beside cuSPARSE on
+                   its chunk incidence; the roadNet-CA stand-in packed with
+                   the default chooser and with the card's table, each
+                   ``A @ x`` against the gold;
   autotune         ``autotune_pack`` on the roadNet-CA stand-in cut to 1M
                    nnz, each candidate's time, the pick's y against the
                    gold, then ``bench_spmv(..., autotune=True)`` on the same
@@ -129,6 +131,18 @@ and the measurement path (``bench/micro.py``, ``pack/rates.py``,
                    stream sums in 7 and 2 streams, 2 folded by 2 and 4, at
                    106 steps (in the L2) and 848, the kernels line's.  Each
                    kernel is held to its plain version;
+  select chains    ``bench_select_chains`` (``bench/select_chains.py``, the
+                   kernel of ``csrc/select_chains.cu`` in its chain, tree,
+                   direct and hilo forms): every kernel of #22
+                   (``exp_q.py``: the chain at 18 (G, P), bigdual, the tile
+                   bases) and #23 (``exp_r3.py``: chain16, tree16, hilo16,
+                   the tile-base forms, split int8 meta), and direct16, at
+                   the scripts' own tile counts and at 32768; each phase
+                   held to its plain version at both sizes, and at 32768
+                   timed beside its bound and cuSPARSE on its incidence
+                   with x; the chain's rates beside ``refresh_rates``' table
+                   for #3; the kernels' registers and global loads
+                   (``-Xptxas -v``, ``cuobjdump -sass``);
   bench entry      ``python -m sparsetpu_torch.bench`` in a subprocess: its
                    last line parses, value > 0, 0 gate errors.
 
@@ -149,6 +163,7 @@ import os
 import sys
 import tempfile
 import time
+import types
 import zlib
 
 import numpy as np
@@ -236,6 +251,18 @@ STREAM_KERNELS = {"streams7": "7", "streams2": "2", "streams2_s2": "2xS2",
 KERNELS["streams7"] = (PROTO_SRC, "scripts/exp_streams.py:34")
 for _k in ("streams2", "streams2_s2", "streams2_s4"):
     KERNELS[_k] = (PROTO_SRC, "scripts/exp_streams.py:51")
+# the select chains: kernels-line name -> (``select_forward``'s launch key,
+# the phase the line records at the large size, the TPU kernel)
+SELECT_SRC = "sparsetpu_torch/csrc/select_chains.cu"
+SELECT_KERNELS = {
+    "select_chain": ("chain", "q:chain@16,1", "scripts/exp_q.py:55"),
+    "select_direct": ("direct", "q:bigdual@32", "scripts/exp_q.py:89"),
+    "select_tree": ("tree", "r3:tree16", "scripts/exp_r3.py:96"),
+    "select_hilo": ("hilo", "r3:hilo16", "scripts/exp_r3.py:119"),
+    "select_tree_i8": ("tree_i8", "r3:tb_tree16_i8", "scripts/exp_r3.py:403"),
+}
+for _k, (_, _, _rep) in SELECT_KERNELS.items():
+    KERNELS[_k] = (SELECT_SRC, _rep)
 TILE_ARGS = ("tile_base", "xw", "values", "i1", "rt")
 # #1 back to back at the headline as PERF.md section 6 records it (NVIDIA
 # H100 80GB HBM3, 700 W): the stage split reads it again beside its phases
@@ -384,7 +411,8 @@ class Smoke:
         import torch
         import sparsetpu_torch as st
         from sparsetpu_torch import _host
-        from sparsetpu_torch.bench import fused_proto, fused_stages, micro
+        from sparsetpu_torch.bench import (fused_proto, fused_stages, micro,
+                                           select_chains)
         from sparsetpu_torch.bench.harness import call_ms, stream_ms
         from sparsetpu_torch.formats.gold import spmm_gold
         from sparsetpu_torch.kernels import (bsr, f64emu, spmm, spmv_fused,
@@ -392,7 +420,7 @@ class Smoke:
         from sparsetpu_torch.pack import final_levels, rates
         self.torch, self.st, self.h = torch, st, _host
         self.micro, self.rates, self.fs = micro, rates, fused_stages
-        self.fp = fused_proto
+        self.fp, self.sc = fused_proto, select_chains
         self.fused, self.sg, self.fl = spmv_fused, spmv_gstream, final_levels
         self.f64, self.bsr = f64emu, bsr
         self.sp, self.spmm_gold = spmm, spmm_gold
@@ -430,6 +458,7 @@ class Smoke:
         self.fs.tile_forward.launches.clear()
         self.fp.fused_proto.launches.clear()
         self.fp.streams_sum.launches.clear()
+        self.sc.select_forward.launches.clear()
 
     def _counts(self):
         f = self.sg.gstream_chunk_sums.launches
@@ -467,7 +496,9 @@ class Smoke:
                    for g in PROTO_GLWS},
                 "selfirst_b": self.fs.tile_forward.launches["selfirst-glw16"],
                 **{k: self.fp.streams_sum.launches[f]
-                   for k, f in STREAM_KERNELS.items()}}
+                   for k, f in STREAM_KERNELS.items()},
+                **{k: self.sc.select_forward.launches[key]
+                   for k, (key, _, _) in SELECT_KERNELS.items()}}
 
     def kernels_of(self, d):
         """The kernels a device's ``spmv`` launches."""
@@ -1489,6 +1520,7 @@ def ladder_main(s, small, t0):
         {f"ladder_{k}" for k in LADDER_STAGES})
     inp = micro.ladder_inputs(n, LADDER_GS, T, s.dev)
     val, idx, xw, base = inp["val"], inp["idx"], inp["xw"], inp["base"]
+    gather_lib = {}      # window-G and window-G-smem share one function
     for name, stage, cell, G, _ in micro.ladder_runs(inp, LADDER_GS):
         args = (stage, val, idx, cell, xw, base)
         yk = micro.ladder_stage(*args, G=G, T=T)
@@ -1505,10 +1537,31 @@ def ladder_main(s, small, t0):
             v = val.view(n, 8, 128)
             _agree(torch.sum(v, 1) * xw[0, 0], yr)
             lib_ms = s.call_ms(lambda: torch.sum(v, 1))
+        elif stage != "lane":
+            key = (stage.split("-")[0], G)
+            if key not in gather_lib:
+                gather_lib[key] = _ladder_library_ms(s, args, G, T, yr)
+            lib_ms = gather_lib[key]
         flops = n * 1024 * (1 if stage in ("stream", "lane") else 2)
         s.record(f"ladder_{name}", tag, err, res[name][0], plain_ms,
                  _nbytes(*streams, yk), flops, lib_ms)
     print(f"phase {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _ladder_library_ms(s, args, G, T, ref):
+    """cuSPARSE's product of one gather stage's incidence with xw (tile
+    output by xw position, ``ladder_index``'s addresses, zero values
+    dropped), checked against the plain output ``ref``; its time."""
+    torch, d = s.torch, s.dev
+    i, ok = s.micro.ladder_index(*args, G=G, T=T)
+    rows = (torch.arange(i.shape[0], device=d).view(-1, 1, 1) * 128
+            + torch.arange(128, device=d)).expand_as(i)
+    vals = args[1].view(i.shape)
+    keep = ok & (vals != 0)
+    xw = args[4]
+    return s.library_spmv(rows[keep], i[keep], vals[keep],
+                          (i.shape[0] * 128, xw.numel()), xw.reshape(-1),
+                          ref.reshape(-1))
 
 
 def _cpu_timer(s):
@@ -1564,8 +1617,15 @@ def rates_main(s, m, default_dev, small, t0):
     ms = n * 1024 / table[(8, 2)] / 1e6
     plain_ms = s.call_ms(lambda: sg.gstream_chunk_sums_reference(
         *args, T=128, G=8, P=4), repeats=10)
+    fwd = types.SimpleNamespace(values=val, meta16=args[1], step_window=sw,
+                                T=128, G=8, GL=0, tile_base=None, P=4)
+    rows, cols, vals, n_out = s._forward_incidence(fwd)
+    lib_ms = s.library_spmv(rows, cols, vals, (n_out, xw0.numel()),
+                            xw0.reshape(-1), cr.reshape(-1))
+    print(f"  {tag}: #3 at G=8 Q=2 {ms:.4f} ms back to back, cuSPARSE on "
+          f"its chunk incidence {lib_ms:.4f} ms", flush=True)
     s.record("rates_forward", tag + ", G=8 Q=2", err, ms, plain_ms,
-             _nbytes(*args, ck), 2 * val.numel(), None)
+             _nbytes(*args, ck), 2 * val.numel(), lib_ms)
     del val, xw0, metas, args, ck, cr
 
     x = np.random.default_rng(0).standard_normal(m.nr_cols)
@@ -2029,6 +2089,145 @@ def fused_proto_main(s, small, t0):
           flush=True)
 
 
+def _select_incidence(s, a):
+    """(rows, cols, values, n_out, x) of one select-chain phase on its
+    arguments ``a`` as one sparse matrix over x (hilo: the f32 x its planes
+    rebuild): output plane position by x position (``select_index``), zero
+    values dropped."""
+    torch, d, sc = s.torch, s.dev, s.sc
+    idx, ok = sc.select_index(**a)
+    n, P = idx.shape[0], a.get("P", 1)
+    rows = ((torch.arange(n, device=d).view(-1, 1, 1) * P
+             + torch.arange(8, device=d).view(1, -1, 1) // (8 // P)) * 128
+            + torch.arange(128, device=d)).expand_as(idx)
+    vals = a["values"].view(idx.shape)
+    keep = ok & (vals != 0)
+    x = sc.hilo_x(a["xw"]) if a["form"] == "hilo" else a["xw"]
+    return rows[keep], idx[keep], vals[keep], n * P * 128, x
+
+
+def _select_kernel_report():
+    """Registers (``-Xptxas -v``) and global loads (``LDG``), local loads
+    and stores (``LDL``, ``STL``: spills) in ``cuobjdump -sass`` of each
+    ``select_kernel`` instance: the chains' loads are volatile, so their
+    count shows none was merged or dropped."""
+    import collections
+    import re
+    import shutil
+    import subprocess
+    from sparsetpu_torch.kernels import _build
+    lib = _build.library()
+    forms = ("chain", "tree", "direct", "hilo")
+
+    def label(mangled):
+        m = re.search(r"select_kernelILi(\d)ELb([01])E", mangled)
+        if m:
+            return forms[int(m.group(1))] + ("_i8" if m.group(2) == "1"
+                                             else "")
+        return None
+    regs, name = {}, None
+    for line in lib.log.splitlines():
+        m = re.search(r"entry function '([^']+)'", line)
+        if m:
+            name = label(m.group(1))
+        elif name and "registers" in line:
+            regs[name] = line.split(":", 1)[-1].strip()
+            name = None
+    exe = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    loads = {}
+    if os.path.exists(exe):
+        sass = subprocess.run([exe, "-sass", lib.path], capture_output=True,
+                              text=True, timeout=300).stdout
+        name = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = label(line)
+                if name:
+                    loads[name] = collections.Counter()
+            elif name:
+                for op in ("LDG", "LDL", "STL"):
+                    if re.search(rf"\b{op}\b", line):
+                        loads[name][op] += 1
+    for k in sorted(set(regs) | set(loads)):
+        ops = loads.get(k)
+        what = (f"{ops['LDG']} LDG, {ops['LDL']} LDL, {ops['STL']} STL"
+                if ops is not None else "not read")
+        print(f"  select_kernel<{k}>: SASS {what}; ptxas: "
+              f"{regs.get(k, 'not read')}", flush=True)
+    if not loads:
+        print(f"  select chains: no SASS read ({exe} not found)", flush=True)
+
+
+def select_chains_main(s, table, small, t0):
+    """#22 and #23 on the card: ``bench_select_chains`` as the main path
+    (every form's launch count zeroed before, non-zero after); then each
+    phase held to its plain version at both sizes and, at the large size,
+    beside its plain time and cuSPARSE on its incidence with x; the
+    chain's rates beside ``table`` (``refresh_rates``' card table for #3 at
+    Q = 8 / P); the G = 16 forms set against the direct load."""
+    sc = s.sc
+    q_n, r3_n, big = sc.tile_counts(small)
+    res = s.drive("select chains", lambda: sc.bench_select_chains(
+        device=s.dev, small=small, timer=_cpu_timer(s), verbose=True),
+        set(SELECT_KERNELS))
+    worst = 0.0
+    for name, r in res.items():
+        a = r["args"]
+        yk, yr = sc.select_forward(**a), sc.select_forward_reference(**a)
+        s.sync()
+        r["err"] = err = _agree(yk, yr)
+        worst = max(worst, err)
+        if not name.endswith(f":{big}"):
+            continue
+        r["plain_ms"] = s.call_ms(lambda: sc.select_forward_reference(**a),
+                                  repeats=5)
+        rows, cols, vals, n_out, x = _select_incidence(s, a)
+        r["lib_ms"] = s.library_spmv(rows, cols, vals, (n_out, x.numel()),
+                                     x.reshape(-1), yr.reshape(-1))
+        del rows, cols, vals
+        print(f"  {name}: {r['stream_ms']:.4f} ms back to back "
+              f"({r['call_ms']:.4f} a call), bound "
+              f"{r['bound_ms'] or float('nan'):.4f}, "
+              f"plain {r['plain_ms']:.4f}, cuSPARSE {r['lib_ms']:.4f}, "
+              f"kernel vs plain max abs {err:.3e}", flush=True)
+    print(f"  select chains: {len(res)} phases, every kernel within "
+          f"{worst:.3e} of its plain version at {q_n}, {r3_n} and {big} "
+          f"tiles", flush=True)
+    for kname, (_, phase, _) in SELECT_KERNELS.items():
+        r = res[f"{phase}:{big}"]
+        s.record(kname, f"select chains, {phase}:{big}, back to back",
+                 r["err"], r["stream_ms"], r["plain_ms"], r["bytes"],
+                 2 * r["args"]["values"].numel(), r["lib_ms"])
+    print(f"  select chains: q:chain@G,P:{big} against #3 in refresh_rates "
+          f"at (G, Q = 8/P), Gslot/s", flush=True)
+    for g, p in sc.Q_COMBOS:
+        rate, card = res[f"q:chain@{g},{p}:{big}"]["gslot_s"], \
+            table[(g, 8 // p)]
+        print(f"    G={g:2d} P={p}: chain {rate:7.1f}  #3 {card:7.1f}  "
+              f"ratio {rate / card:.3f}", flush=True)
+    for suffix, what in (("", f"{r3_n} tiles"), (f":{big}", f"{big} tiles"),
+                         (f":{big}:T{sc.FINE_T}",
+                          f"{big} tiles, {sc.FINE_T} a block")):
+        d = res[f"r3:direct16{suffix}"]["stream_ms"]
+        print(f"  select chains at {what}, G = 16 against the direct load "
+              f"({d:.4f} ms): " + ", ".join(
+                  f"{v} {res[f'r3:{v}{suffix}']['stream_ms'] / d:.3f}x"
+                  for v in ("chain16", "tree16", "hilo16")), flush=True)
+    for suffix in ("", f":{big}"):
+        ratios = [res[f"q:chain@{g},1{suffix}"]["stream_ms"]
+                  / res[f"q:bigdual@{g}{suffix}"]["stream_ms"]
+                  for g in sc.Q_BIGDUAL]
+        print(f"  select chains at {q_n if not suffix else big} tiles, the "
+              f"chain against bigdual (P = 1): " + ", ".join(
+                  f"G={g} {v:.3f}x" for g, v in zip(sc.Q_BIGDUAL, ratios)),
+              flush=True)
+    if s.dev.type == "cuda":
+        _select_kernel_report()
+    print(f"phase select chains: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
 def bench_entry(s, t0):
     """``python -m sparsetpu_torch.bench`` in a subprocess (``--device cpu
     --small`` on a CPU rehearsal): its last line parses, value > 0, the
@@ -2335,11 +2534,12 @@ def run(device, hbm: float, small: bool = False):
     spgemm_main(s, small, time.perf_counter())
 
     # ---- the stage ladder (#15), the fused kernel's stage split (#17-#19,
-    # #26), the fused-redesign prototypes (#20, #21, #24, #25) and the
-    # port's bench line
+    # #26), the fused-redesign prototypes (#20, #21, #24, #25), the select
+    # chains (#22, #23) and the port's bench line
     ladder_main(s, small, time.perf_counter())
     fused_stages_main(s, small, time.perf_counter())
     fused_proto_main(s, small, time.perf_counter())
+    select_chains_main(s, table, small, time.perf_counter())
     bench_entry(s, time.perf_counter())
 
     missing = sorted(set(KERNELS) - set(s.records))

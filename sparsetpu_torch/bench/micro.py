@@ -83,17 +83,15 @@ def _check(stage, val, idx, cell, xw, base, G, T) -> int:
     return rows // CHUNK
 
 
-def ladder_reference(stage, val, idx, cell, xw, base=None, *, G: int = 1,
-                     T: int = 16) -> torch.Tensor:
-    """Plain PyTorch version of one stage over all tiles at once: (n_tiles,
-    128) f32.  A cell past its window or a base past xw reads 0."""
+def ladder_index(stage, val, idx, cell, xw, base=None, *, G: int = 1,
+                 T: int = 16) -> tuple:
+    """The x element each slot of a gather stage (dual, tilebase, window,
+    window-smem) reads: (flat index into xw, reads x), both (n_tiles, 8,
+    128).  A cell past its window or a base past xw reads 0."""
     n = _check(stage, val, idx, cell, xw, base, G, T)
-    v = val.view(n, CHUNK, LANES)
-    if stage == "stream":
-        return v.sum(1) * xw[0, 0]
+    if STAGES[stage] < STAGES["dual"]:
+        raise ValueError(f"stage {stage!r} gathers no x")
     j = idx.view(n, CHUNK, LANES).long() & 127
-    if stage == "lane":
-        return torch.gather(v, 2, j).sum(1) * xw[0, 0]
     c = torch.gather(cell.view(n, CHUNK, LANES).long(), 2, j)
     if stage == "tilebase":
         b = base.long().view(n, 1, 1)
@@ -102,9 +100,22 @@ def ladder_reference(stage, val, idx, cell, xw, base=None, *, G: int = 1,
     else:
         groups = G if stage.startswith("window") else 1
         ok, r = (c >= 0) & ((c >> 3) < groups), c
-    xv = torch.where(ok, xw.reshape(-1)[torch.where(ok, r * LANES + j, 0)],
-                     0.0)
-    return (v * xv).sum(1)
+    return torch.where(ok, r * LANES + j, 0), ok
+
+
+def ladder_reference(stage, val, idx, cell, xw, base=None, *, G: int = 1,
+                     T: int = 16) -> torch.Tensor:
+    """Plain PyTorch version of one stage over all tiles at once: (n_tiles,
+    128) f32.  A cell past its window or a base past xw reads 0."""
+    n = _check(stage, val, idx, cell, xw, base, G, T)
+    v = val.view(n, CHUNK, LANES)
+    if stage == "stream":
+        return v.sum(1) * xw[0, 0]
+    if stage == "lane":
+        j = idx.view(n, CHUNK, LANES).long() & 127
+        return torch.gather(v, 2, j).sum(1) * xw[0, 0]
+    i, ok = ladder_index(stage, val, idx, cell, xw, base, G=G, T=T)
+    return (v * torch.where(ok, xw.reshape(-1)[i], 0.0)).sum(1)
 
 
 def ladder_stage(stage, val, idx, cell, xw, base=None, *, G: int = 1,

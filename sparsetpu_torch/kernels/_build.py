@@ -5,8 +5,9 @@ their kernels on the real type: one source holds a kernel's f32 and f64
 (native FP64) forms, each behind its own entry point.  The BSR partials
 (``bsr_spmv.cu``) are f32 only, as the TPU's BSR device; the stage ladder
 (``micro_ladder.cu``, ``bench/micro.py``), the fused kernel's stage
-split (``fused_stages.cu``, ``bench/fused_stages.py``) and the
+split (``fused_stages.cu``, ``bench/fused_stages.py``), the
 fused-redesign prototypes (``fused_proto.cu``, ``bench/fused_proto.py``)
+and the select chains (``select_chains.cu``, ``bench/select_chains.py``)
 are measurement kernels.
 
 ``nvcc`` compiles ``sparsetpu_torch/csrc/*.cu`` for ``sm_90a`` into
@@ -148,6 +149,9 @@ def library() -> _Library:
     lib.fused_proto_launch.argtypes = [p] * 8 + [i] * 5 + [p]
     lib.streams_launch.restype = i
     lib.streams_launch.argtypes = [i, p, i, p, p, p, i, i, p]
+    lib.select_chains_launch.restype = i
+    lib.select_chains_launch.argtypes = [i, i] + [p] * 7 + [ll] + [i] * 6 \
+        + [p]
     lib.sparsetpu_error_string.restype = ctypes.c_char_p
     lib.sparsetpu_error_string.argtypes = [i]
     _LIBRARY.lib, _LIBRARY.path = lib, path
