@@ -15,12 +15,21 @@ Builds the CUDA kernels and the native packer from this checkout, then:
                    behind F levels, final spills, the segment-sum route and
                    bf16 values.  Each kernel runs beside its plain PyTorch
                    version on the card and y is checked against the gold;
+                   every classic final runs as the row-sorted final
+                   (``csrc/final_rows.cu``, the map built at upload),
+                   held to its plain version and to the TPU layout's plain
+                   final (the per-instance grids, the spills, the adds);
   headline         the bench.py matrix (200k x 100k, 50 nnz/row, ~10M nnz):
                    the fused main path;
   wide x           a stand-in with the shape and nnz of SNAP/roadNet-CA
                    (1,971,281^2, 5,533,214 nnz, uniform random columns):
                    x too wide for the fused layout, so the whole matrix goes
-                   to the classic device;
+                   to the classic device; its final (8 sections and the
+                   spills in one map) timed as the row-sorted kernel, as
+                   the per-instance path it replaced (driven once, as a
+                   comparison), plain and as cuSPARSE on the same 0/1
+                   matrix; a thread a row against a warp a row on uniform
+                   rows of 4-4096 entries (the short bin's threshold);
   web graph        the webbase-1M stand-in (1,000,005^2, power-law rows):
                    the heavy-row hybrid, light rows fused and heavy rows on a
                    classic device with F levels and the legacy final;
@@ -76,8 +85,8 @@ and BSR SpMV, the solvers and SpGEMM last:
                    breakdown) and ``power_iteration`` once each; ``sm @ m``
                    and ``sm @ sm`` at the JAX SpGEMM tests' shapes;
   BSR FEM 72^3     ``BSRDevice.spmv`` on ``csr_to_bsr(fem_poisson_3d(72))``:
-                   the BSR kernel and the legacy final, beside the CSR
-                   route of the same matrix and cuSPARSE;
+                   the BSR kernel and the legacy final (row-sorted), beside
+                   the CSR route of the same matrix and cuSPARSE;
   pcg on BSR       ``pcg`` with the Jacobi preconditioner on that operator:
                    one launch of each kernel an SpMV, b - A x recomputed in
                    f64 by the gold;
@@ -153,7 +162,10 @@ each of its kernels is compared with its plain version on the path's own
 inputs and timed with CUDA events beside its bound (the bytes it must move
 at the card's HBM rate) and one PyTorch call computing the same function.
 Every check raises on failure, so any failed phase exits non-zero.  The
-line before the last is the kernels' JSON record; the last line is
+line before the last is the kernels' JSON record (``launches_from`` says
+whether a kernel's launches came from main paths or, for the per-instance
+finals the row-sorted final replaced, from the comparison path that
+drives them beside it); the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; exits non-zero without
 one, and without the repository beside it.
 """
@@ -212,7 +224,21 @@ KERNELS = {
                      "sparsetpu/kernels/bsr.py:30"),
     "rates_forward": ("sparsetpu_torch/csrc/gstream_spmv.cu",
                       "sparsetpu/pack/rates.py:115"),
+    # the classic devices' final since the row-sorted redesign: #4 and #5
+    # in f32, #12 in f64 (the per-instance kernels above stay behind
+    # ``FinalDevice.grid``)
+    "final_rows": ("sparsetpu_torch/csrc/final_rows.cu",
+                   "sparsetpu/kernels/spmv_pallas.py:767, :196"),
+    "final_rows_f64": ("sparsetpu_torch/csrc/final_rows.cu",
+                       "sparsetpu/kernels/f64emu.py:196"),
 }
+# kernels that no user path launches any more: their launches on the
+# kernels line come from the path they were replaced on, driven beside the
+# new kernel for comparison (``Smoke.final``)
+COMPARISON = {k: "comparison: the per-instance final path that the "
+                 "row-sorted final replaced" for k in (
+                     "gstream_final_flat", "gstream_final_legacy",
+                     "gstream_final_legacy_f64")}
 # the stage ladder: one entry a stage (bench_ladder's keys)
 LADDER_GS = (1, 2, 4, 8, 16, 32)
 LADDER_STAGES = ("stream", "lane", "dual", "tilebase") + tuple(
@@ -417,12 +443,13 @@ class Smoke:
         from sparsetpu_torch.formats.gold import spmm_gold
         from sparsetpu_torch.kernels import (bsr, f64emu, spmm, spmv_fused,
                                              spmv_gstream)
+        from sparsetpu_torch.kernels import final_rows as fr
         from sparsetpu_torch.pack import final_levels, rates
         self.torch, self.st, self.h = torch, st, _host
         self.micro, self.rates, self.fs = micro, rates, fused_stages
         self.fp, self.sc = fused_proto, select_chains
         self.fused, self.sg, self.fl = spmv_fused, spmv_gstream, final_levels
-        self.f64, self.bsr = f64emu, bsr
+        self.f64, self.bsr, self.fr = f64emu, bsr, fr
         self.sp, self.spmm_gold = spmm, spmm_gold
         self._call_ms, self._stream_ms = call_ms, stream_ms
         self.dev = torch.device(device)
@@ -449,6 +476,7 @@ class Smoke:
         self.fused.fused_spmv_f64.launches = 0
         self.sg.gstream_chunk_sums_f64.launches = 0
         self.sg.final_gather_f64.launches = 0
+        self.fr.final_rows.launches.clear()
         self.sp.gstream_chunk_sums_multi_f64.launches = 0
         self.bsr.bsr_partials.launches = 0
         self.micro.ladder_stage.launches.clear()
@@ -464,6 +492,7 @@ class Smoke:
         f = self.sg.gstream_chunk_sums.launches
         w = self.sg.final_gather.launches
         mw = self.sp.final_gather_multi.launches
+        r = self.fr.final_rows.launches
         return {"fused_spmv": self.fused.fused_spmv.launches,
                 "gstream_spmv_window": f["window"],
                 "gstream_spmv_tile_base": f["tile_base"],
@@ -481,6 +510,8 @@ class Smoke:
                     self.sp.gstream_chunk_sums_multi_f64.launches,
                 "bsr_partials": self.bsr.bsr_partials.launches,
                 "rates_forward": 0,
+                "final_rows": r["short"] + r["long"],
+                "final_rows_f64": r["short_f64"] + r["long_f64"],
                 **{f"ladder_{k}": self.micro.ladder_stage.launches[k]
                    for k in LADDER_STAGES},
                 "stages_fwd": self.fs.fused_forward.launches,
@@ -506,8 +537,7 @@ class Smoke:
             if isinstance(d, self.fused.FusedDevice):
                 return {"fused_spmv_f64"}
             return {"gstream_spmv_window_f64"} | (
-                {"gstream_final_legacy_f64"} if d.final is not None
-                else set())
+                {"final_rows_f64"} if d.final is not None else set())
         if isinstance(d, self.fused.FusedDevice):
             return {"fused_spmv"}
         ks = {"gstream_spmv_tile_base" if d.stream.GL
@@ -515,8 +545,7 @@ class Smoke:
         if len(d.flevels):
             ks.add("gstream_spmv_window")
         if d.final is not None:
-            ks |= {"gstream_final_flat" if lvl.v2 else "gstream_final_legacy"
-                   for lvl in getattr(d.final, "levels", [d.final])}
+            ks.add("final_rows")
         return ks
 
     def spmm_kernels_of(self, d):
@@ -526,8 +555,7 @@ class Smoke:
             if isinstance(d, self.fused.FusedDevice):
                 return {"fused_spmv_f64"}
             return {"gstream_spmm_f64"} | (
-                {"gstream_final_legacy_f64"} if d.final is not None
-                else set())
+                {"final_rows_f64"} if d.final is not None else set())
         if isinstance(d, self.fused.FusedDevice):
             return {"fused_spmm"}
         ks = {"gstream_spmm"}
@@ -537,8 +565,7 @@ class Smoke:
         if len(d.flevels):
             ks.add("gstream_spmv_window")
         if d.final is not None:
-            ks |= {"gstream_final_flat" if lvl.v2 else "gstream_final_legacy"
-                   for lvl in getattr(d.final, "levels", [d.final])}
+            ks.add("final_rows")
         return ks
 
     def drive(self, tag, fn, expected, main=True, rename=None):
@@ -588,15 +615,26 @@ class Smoke:
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
                 "library_ms": lib_ms}
 
-    def library_spmv(self, rows, cols, vals, shape, x, ref):
+    def library_spmv(self, rows, cols, vals, shape, x, ref,
+                     back_to_back=False):
         """One sparse product computing the same function (cuSPARSE on the
-        card), checked against the kernel's plain output; its time."""
+        card), checked against the kernel's plain output; its time (and,
+        with ``back_to_back``, its time back to back)."""
         torch = self.torch
         a = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals,
                                     shape).coalesce().to_sparse_csr()
         y = a @ x
         _agree(y[:ref.shape[0]].view_as(ref), ref)
-        return self.call_ms(lambda: a @ x)
+        ms = self.call_ms(lambda: a @ x)
+        if back_to_back:
+            return ms, self.back_to_back(lambda: a @ x)
+        return ms
+
+    def back_to_back(self, fn):
+        """``stream_ms`` on the card (device time a call, host gaps out);
+        nan on the CPU."""
+        return self._stream_ms(fn, self.dev) if self.dev.type == "cuda" \
+            else float("nan")
 
     def _forward_incidence(self, fwd):
         """(rows, cols, values, n_out) of the forward as one sparse matrix:
@@ -664,9 +702,12 @@ class Smoke:
                     2 * fwd.values.numel() * X.shape[1], lib_ms)
         return cr
 
-    def _final_incidence(self, levels):
-        """(rows, cols, n_pos, n_out) of final levels as one 0/1 sparse
-        matrix: y row by position."""
+    def _final_incidence(self, levels, nr_rows=None, n_positions=None):
+        """(rows, cols, shape) of final levels as one 0/1 sparse matrix, y
+        row by position, from their TPU tables: the grid (every out tile's
+        rows), or, given ``nr_rows`` and ``n_positions``, what ``apply``
+        computes: grid rows past nr_rows and positions past n_positions
+        dropped, the spills in."""
         torch, sg = self.torch, self.sg
         rows, cols = [], []
         for lvl in levels:
@@ -677,44 +718,163 @@ class Smoke:
             t = torch.arange(lvl.tps, device=self.dev).view(1, -1, 1, 1)
             lane = torch.arange(128, device=self.dev).view(1, 1, 1, -1)
             out = ((o * lvl.tps + t) * 128 + lane).expand_as(idx)
+            if nr_rows is not None:
+                ok = ok & (out < nr_rows) & (idx < n_positions)
             rows.append(out[ok])
             cols.append(idx[ok])
+        if nr_rows is not None:
+            rows += [lvl.spill_row for lvl in levels]
+            cols += [lvl.spill_pos for lvl in levels]
+            return torch.cat(rows), torch.cat(cols), (nr_rows, n_positions)
         return (torch.cat(rows), torch.cat(cols),
-                max(lvl.x_pad_rows for lvl in levels) * 128,
-                max(lvl.nt_pad for lvl in levels) * 128)
+                (max(lvl.nt_pad for lvl in levels) * 128,
+                 max(lvl.x_pad_rows for lvl in levels) * 128))
 
-    def final(self, final, vec, nr_rows, tag, measure=True):
-        """A final level (all its flat levels, for a multi final) vs its
-        plain version on the position vector ``vec``."""
-        torch, sg = self.torch, self.sg
-        ref = sg.final_gather_reference
-        levels = list(getattr(final, "levels", [final]))
-        gk = [lvl.grid(vec) for lvl in levels]
-        gr = [lvl.grid(vec, ref) for lvl in levels]
+    def tpu_levels(self, final):
+        """The levels of a device final with their TPU tables on the card
+        (a device's own level where they stayed, else a copy uploaded from
+        its host level): the per-instance path's, for comparisons."""
+        return [lvl.with_tables(self.dev)
+                for lvl in getattr(final, "levels", [final])]
+
+    def old_final(self, levels, vec, kernel=None):
+        """y as the classic devices finished before the row-sorted final:
+        each level's per-instance grid (``csrc/gstream_final.cu``, or
+        ``kernel``), sliced to nr_rows, its spills by ``index_add_``, the
+        levels' ys added."""
+        flat, y = vec.reshape(-1), None
+        for lvl in levels:
+            yl = lvl.grid(vec, kernel).view(-1)[:lvl.nr_rows]
+            if lvl.n_spills:
+                yl.index_add_(0, lvl.spill_row, flat[lvl.spill_pos])
+            y = yl if y is None else y + yl
+        return y
+
+    def rows_build(self, final, levels, tag):
+        """``FinalRows.from_levels`` once more for ``final`` from its
+        ``levels`` (``tpu_levels``), timed (host clock, synchronised): the
+        set-up cost the upload pays."""
+        rows = final.rows
         self.sync()
-        err = max(_agree(a, b) for a, b in zip(gk, gr))
+        t0 = time.perf_counter()
+        again = self.fr.FinalRows.from_levels(levels, rows.nr_rows,
+                                              rows.n_positions, self.dev)
+        self.sync()
+        dt = time.perf_counter() - t0
+        if not (self.torch.equal(again.rowptr, rows.rowptr)
+                and self.torch.equal(again.idx, rows.idx)):
+            raise RuntimeError(f"{tag}: FinalRows built twice differ")
+        lens = rows.rowptr.diff()
+        def tables(lvls):
+            return sum(_nbytes(*(getattr(lvl, k) for k in lvl.TABLES))
+                       for lvl in lvls)
+        print(f"  FinalRows [{tag}]: {rows.nr_rows} rows, {rows.n_entries} "
+              f"entries ({rows.n_entries / max(rows.nr_rows, 1):.3f} a row, "
+              f"longest {int(lens.max()) if lens.numel() else 0}, "
+              f"{int((lens == 0).sum())} empty), {rows.n_long} long rows, "
+              f"from {len(levels)} levels and "
+              f"{sum(lvl.n_spills for lvl in levels)} spills; built in "
+              f"{dt:.4f} s; the map "
+              f"{_nbytes(rows.rowptr, rows.idx, rows.long_rows)} B, the TPU "
+              f"tables {tables(levels)} B, of which the device keeps "
+              f"{tables(getattr(final, 'levels', [final]))} B", flush=True)
+        return dt
+
+    def gather_sectors(self, rows, elt):
+        """32 B sectors of vec the kernel's gathers touch, from the
+        indices: distinct ones, and distinct ones a warp load summed (the
+        short bin's thread a row: lane i of warp w at its row's j-th entry
+        in load j; the int4 body ignored)."""
+        torch = self.torch
+        sec = rows.idx.long() * elt // 32
+        row = torch.repeat_interleave(
+            torch.arange(rows.nr_rows, device=self.dev),
+            rows.rowptr.diff().long(), output_size=rows.n_entries)
+        j = torch.arange(rows.n_entries, device=self.dev) - \
+            rows.rowptr.long()[row]
+        key = ((row // 32) * (int(j.max()) + 1 if j.numel() else 1) + j) * \
+            (int(sec.max()) + 1 if sec.numel() else 1) + sec
+        return (int(torch.unique(sec).numel()),
+                int(torch.unique(key).numel()))
+
+    def final(self, final, vec, tag, measure=True):
+        """The row-sorted final (every level of a multi final, and the
+        spills) vs its plain version and vs the TPU layout's plain final
+        (each level's grid, its spills, the adds), and each level's
+        per-instance kernel vs its plain version, on the position vector
+        ``vec``.  Measured: the new kernel, the old per-instance path
+        (driven once, a comparison path, on levels with their TPU tables
+        on the card), the plain versions and cuSPARSE on the 0/1 matrix
+        with the spills (for the per-instance kernel on its grid's)."""
+        torch, sg, fr = self.torch, self.sg, self.fr
+        rows = final.rows
+        levels = self.tpu_levels(final)
+        yk, yr = final.apply(vec), final.apply(vec, fr.final_rows_reference)
+        yt = self.old_final(levels, vec, sg.final_gather_reference)
+        gk = [lvl.grid(vec) for lvl in levels]
+        gr = [lvl.grid(vec, sg.final_gather_reference) for lvl in levels]
+        self.sync()
+        err = _agree(yk, yr)
+        _agree(yk, yt)
+        old_err = max(_agree(a, b) for a, b in zip(gk, gr))
+        del gk
         if not measure:
             return
-        name = "gstream_final_flat" if levels[0].v2 else \
-            "gstream_final_legacy"
-        if vec.dtype == torch.float64:
-            name = "gstream_final_legacy_f64"
-        ms = self.call_ms(lambda: [lvl.grid(vec) for lvl in levels])
-        plain_ms = self.call_ms(lambda: [lvl.grid(vec, ref)
-                                         for lvl in levels], repeats=10)
-        rows, cols, n_pos, n_out = self._final_incidence(levels)
+        f64 = vec.dtype == torch.float64
+        name = "final_rows_f64" if f64 else "final_rows"
+        old = ("gstream_final_legacy_f64" if f64 else
+               "gstream_final_flat" if levels[0].v2 else
+               "gstream_final_legacy")
+        build_s = self.rows_build(final, levels, tag)
+        self.drive(f"{tag}, the per-instance final path (comparison)",
+                   lambda: self.old_final(levels, vec), {old})
+        n_launch = int(rows.n_long < rows.nr_rows) + int(rows.n_long > 0)
+        ms = self.call_ms(lambda: final.apply(vec))
+        plain_ms = self.call_ms(
+            lambda: final.apply(vec, fr.final_rows_reference), repeats=10)
+        old_ms = self.call_ms(lambda: self.old_final(levels, vec))
+        grid_ms = self.call_ms(lambda: [lvl.grid(vec) for lvl in levels])
+        grid_plain_ms = self.call_ms(
+            lambda: [lvl.grid(vec, sg.final_gather_reference)
+                     for lvl in levels], repeats=10)
+        r, c, shape = self._final_incidence(levels, rows.nr_rows,
+                                            rows.n_positions)
         flat = vec.reshape(-1)
-        flat = torch.nn.functional.pad(flat, (0, max(0, n_pos - flat.numel())))
-        total = sum(g.reshape(-1)[:nr_rows] for g in gr)
-        lib_ms = self.library_spmv(
-            rows, cols, torch.ones(rows.numel(), dtype=vec.dtype,
-                                   device=self.dev),
-            (n_out, n_pos), flat[:n_pos], total)
-        nb = (n_pos + n_out) * vec.element_size() + sum(
+        lib_ms, lib_b2b = self.library_spmv(
+            r, c, torch.ones(r.numel(), dtype=vec.dtype, device=self.dev),
+            shape, flat[:rows.n_positions], yr, back_to_back=True)
+        # the per-instance kernel's own function: the grids only, every
+        # out tile's rows, over the padded positions
+        r, c, (n_out, n_pos) = self._final_incidence(levels)
+        grid_sum = sum(torch.nn.functional.pad(
+            g.reshape(-1), (0, n_out - g.numel())) for g in gr)
+        grid_lib_ms = self.library_spmv(
+            r, c, torch.ones(r.numel(), dtype=vec.dtype, device=self.dev),
+            (n_out, n_pos), torch.nn.functional.pad(
+                flat, (0, max(0, n_pos - flat.numel())))[:n_pos], grid_sum)
+        del r, c, gr, grid_sum
+        b2b = self.back_to_back(lambda: final.apply(vec))
+        old_b2b = self.back_to_back(lambda: self.old_final(levels, vec))
+        elt = vec.element_size()
+        nb = _nbytes(rows.rowptr, rows.idx, rows.long_rows) + \
+            (rows.n_entries + rows.nr_rows) * elt
+        self.record(name, tag, err, ms, plain_ms, nb, rows.n_entries, lib_ms)
+        nb_old = (n_pos + n_out) * elt + sum(
             _nbytes(lvl.step_meta, lvl.tile_bases, lvl.inst_start,
                     lvl.cells, lvl.route) for lvl in levels)
-        self.record(name, tag, err, ms, plain_ms, nb,
-                    sum(lvl.cells.numel() for lvl in levels), lib_ms)
+        self.record(old, tag, old_err, grid_ms, grid_plain_ms, nb_old,
+                    sum(lvl.cells.numel() for lvl in levels), grid_lib_ms)
+        touched, requested = self.gather_sectors(rows, elt)
+        print(f"  final [{tag}]: row-sorted {ms:.4f} ms a call, {b2b:.4f} "
+              f"back to back ({n_launch} launches) | per-instance path (the "
+              f"grids, the spills' index_add_, the adds) {old_ms:.4f} ms, "
+              f"{old_b2b:.4f} back to back, {old_ms / ms:.2f}x | cuSPARSE "
+              f"{lib_ms:.4f} ms, {lib_b2b:.4f} back to back | FinalRows "
+              f"build {build_s:.4f} s | vec "
+              f"sectors: {touched} touched ({touched * 32} B), {requested} "
+              f"a warp load summed ({requested * 32} B; at "
+              f"{self.hbm:.0f} GB/s {requested * 32 / self.hbm / 1e6:.4f} "
+              f"ms)", flush=True)
 
     def final_multi(self, lvl, vec, tag, measure=True):
         """The k-plane final kernel of one final level vs its plain version
@@ -730,7 +890,7 @@ class Smoke:
                 else "gstream_final_multi_legacy")
         ms = self.call_ms(lambda: lvl.grid_multi(vec))
         plain_ms = self.call_ms(lambda: lvl.grid_multi(vec, ref), repeats=10)
-        rows, cols, n_pos, n_out = self._final_incidence([lvl])
+        rows, cols, (n_out, n_pos) = self._final_incidence([lvl])
         k = vec.shape[1]
         X = torch.nn.functional.pad(
             vec, (0, 0, 0, max(0, n_pos - vec.shape[0])))[:n_pos]
@@ -765,7 +925,7 @@ class Smoke:
         if len(d.flevels):
             _agree(vk, vec)
         if d.final is not None:
-            self.final(d.final, vec, d.meta.nr_rows, tag, measure)
+            self.final(d.final, vec, tag, measure)
 
     def bsr_kernel(self, d, x2, tag, measure=True):
         """The BSR kernel of one ``BSRDevice`` vs its plain version;
@@ -1212,6 +1372,54 @@ def f64_classic_regimes(s):
               f"errors", flush=True)
 
 
+def final_rows_bins(s, small):
+    """The row-sorted final's threshold ``SHORT_MAX`` on the card: on
+    uniform rows of 4 to 4096 entries at random positions (4M entries, an
+    8M-position vec, from a seed), its two launches over every row, a
+    thread a row against a warp a row, each held to the plain version."""
+    import ctypes
+
+    from sparsetpu_torch.kernels._build import check, library
+    torch, fr = s.torch, s.fr
+    lib = library().lib
+    stream = ctypes.c_void_p(torch.cuda.current_stream(s.dev).cuda_stream)
+    n_pos, n_ent = (1 << 16, 1 << 15) if small else (1 << 23, 1 << 22)
+    g = torch.Generator(device=s.dev).manual_seed(0)
+    v = torch.randn(n_pos, generator=g, device=s.dev)
+    times = []
+    for length in (4, 8, 16, 32, 64, 512, 4096):
+        nr = n_ent // length
+        rowptr = torch.arange(nr + 1, dtype=torch.int32,
+                              device=s.dev) * length
+        idx = torch.randint(0, n_pos, (nr * length,), generator=g,
+                            dtype=torch.int32, device=s.dev)
+        rows = fr.FinalRows(rowptr, idx, n_pos)
+        every = torch.arange(nr, dtype=torch.int32, device=s.dev)
+        yr = fr.final_rows_reference(v, rows)
+        y = torch.empty_like(yr)
+
+        def launch(lst):
+            # rows null: a thread a row over every row (max_len -1: none
+            # left to the long launch); a row list: a warp a row over it
+            check(lib, lib.final_rows_launch(
+                ctypes.c_void_p(rowptr.data_ptr()),
+                ctypes.c_void_p(idx.data_ptr()),
+                ctypes.c_void_p(v.data_ptr()),
+                ctypes.c_void_p(lst.data_ptr() if lst is not None else 0),
+                nr, -1, ctypes.c_void_p(y.data_ptr()), stream),
+                "final_rows launch")
+            return y
+
+        ms = []
+        for lst in (None, every):
+            _agree(launch(lst), yr)
+            ms.append(s.back_to_back(lambda: launch(lst)))
+        times.append(f"{length}: {ms[0]:.4f} / {ms[1]:.4f}")
+    print(f"  final_rows: uniform rows, {n_ent} entries over {n_pos} "
+          f"positions, length: a thread a row / a warp a row, ms back to "
+          f"back: {', '.join(times)} (SHORT_MAX {fr.SHORT_MAX})", flush=True)
+
+
 def describe_bsr(d) -> str:
     fin = d.plan
     out = (f"BSR {d.nr_rows}x{d.nr_cols}, {d.n_blocks} blocks (padded), "
@@ -1254,14 +1462,13 @@ def bsr_regimes(s):
         x = np.random.default_rng(3).standard_normal(m.nr_cols)
         xt = torch.as_tensor(x, dtype=torch.float32, device=s.dev)
         expected = {"bsr_partials"} | (
-            {"gstream_final_legacy"} if d.final is not None else set())
+            {"final_rows"} if d.final is not None else set())
         y = s.drive(f"bsr regime {tag}", lambda: d.spmv(xt), expected,
                     main=False)
         _gold_errors(h, m, x, y.cpu().numpy())
         parts = s.bsr_kernel(d, d.prepare_x(xt), tag, measure=False)
         if d.final is not None:
-            s.final(d.final, parts.reshape(-1), d.rows_pad, tag,
-                    measure=False)
+            s.final(d.final, parts.reshape(-1), tag, measure=False)
         print(f"bsr regime {tag}: {describe_bsr(d)} | kernels agree with "
               f"their plain versions | vs spmv_gold 0 errors", flush=True)
 
@@ -1342,19 +1549,20 @@ def bsr_main(s, small, t0):
         raise RuntimeError(f"{tag}: expected the legacy final")
     x = np.random.default_rng(0).standard_normal(m.nr_cols)
     xt = torch.as_tensor(x, dtype=torch.float32, device=s.dev)
-    y = s.drive(tag, lambda: d.spmv(xt),
-                {"bsr_partials", "gstream_final_legacy"})
+    rows = d.final.rows
+    n_fin = int(rows.n_long < rows.nr_rows) + int(rows.n_long > 0)
+    y = s.drive(tag, lambda: d.spmv(xt), {"bsr_partials", "final_rows"})
     counts = s._counts()
     if s.dev.type == "cuda" and (counts["bsr_partials"] != 1 or
-                                 counts["gstream_final_legacy"] != 1):
-        raise RuntimeError(f"{tag}: expected one launch each of #14 and #5,"
-                           f" got {counts}")
+                                 counts["final_rows"] != n_fin):
+        raise RuntimeError(f"{tag}: expected one launch of #14 and {n_fin} "
+                           f"of the final, got {counts}")
     if tuple(y.shape) != (m.nr_rows,) or not bool(y.isfinite().all()):
         raise RuntimeError(f"{tag}: bad y, shape {tuple(y.shape)}")
     _gold_errors(h, m, x, y.cpu().numpy())
     print(f"{tag}: 0 errors vs spmv_gold", flush=True)
     parts = s.bsr_kernel(d, d.prepare_x(xt), tag)
-    s.final(d.final, parts.reshape(-1), d.rows_pad, tag, measure=False)
+    s.final(d.final, parts.reshape(-1), tag)
     ms = s.call_ms(lambda: d.spmv(xt), repeats=20)
     print(f"  {tag}: BSRDevice.spmv {ms:.4f} ms a call "
           f"({m.nr_nzeros / ms / 1e6:.2f} Gnnz/s)", flush=True)
@@ -1374,15 +1582,16 @@ def bsr_main(s, small, t0):
     t1 = time.perf_counter()
     res = s.drive(tag, lambda: st.pcg(d.spmv, rhs, m_inv, tol=1e-5,
                                       maxiter=2000),
-                  {"bsr_partials", "gstream_final_legacy"})
+                  {"bsr_partials", "final_rows"})
     wall = time.perf_counter() - t1
     counts = s._counts()
     k = res.iterations
     if s.dev.type == "cuda" and (
             counts["bsr_partials"] != k + 1 or
-            counts["gstream_final_legacy"] != k + 1):
-        raise RuntimeError(f"{tag}: expected {k + 1} launches of #14 and #5"
-                           f" (one an SpMV), got {counts}")
+            counts["final_rows"] != (k + 1) * n_fin):
+        raise RuntimeError(f"{tag}: expected {k + 1} launches of #14 and "
+                           f"{(k + 1) * n_fin} of the final (one an SpMV), "
+                           f"got {counts}")
     xs = res.x.cpu().numpy().astype(np.float64)
     rel = float(np.linalg.norm(1.0 - h.spmv_gold(m, xs)) /
                 np.sqrt(m.nr_rows))
@@ -1391,8 +1600,9 @@ def bsr_main(s, small, t0):
                            f" iterations")
     print(f"{tag}: {k} iterations, {wall * 1e3 / max(k, 1):.4f} ms an "
           f"iteration (host clock, the loop's scalar syncs included), "
-          f"||b - A x|| / ||b|| {rel:.3e} (f64, spmv_gold), #14 and #5 "
-          f"launched {k + 1} times each", flush=True)
+          f"||b - A x|| / ||b|| {rel:.3e} (f64, spmv_gold), #14 launched "
+          f"{k + 1} times, the row-sorted final {(k + 1) * n_fin}",
+          flush=True)
     print(f"phase {tag}: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
@@ -1484,6 +1694,8 @@ def spgemm_main(s, small, t0):
           f"pack + upload) in {plan_s:.1f} s; "
           f"{plan.flops // 2} multiplications, nnz(C) = {plan.nnz_c}; "
           f"numeric phase on: {s.describe(d)}", flush=True)
+    if getattr(d, "final", None) is not None:
+        s.rows_build(d.final, s.tpu_levels(d.final), tag + ", event matrix")
     bv = torch.as_tensor(m.values, device=s.dev)
     t1 = time.perf_counter()
     c = s.drive(tag, lambda: plan.to_csr(plan(bv)), s.kernels_of(d))
@@ -2394,6 +2606,8 @@ def run(device, hbm: float, small: bool = False):
     s.whole_call(sm, m, xt, "wide x (roadNet-CA)")
     s.profile("wide x (roadNet-CA)", lambda: sm @ xt)
     s.gstream(sm.device_module, xt, "wide x (roadNet-CA)")
+    if s.dev.type == "cuda":
+        final_rows_bins(s, small)
     tag = "wide x SpMM k=2 (roadNet-CA)"
     Xt = spmm_path(s, tag, m, lambda X: sm @ X, [sm.device_module], 2)
     s.whole_call_multi(sm, m, Xt, tag)
@@ -2546,7 +2760,9 @@ def run(device, hbm: float, small: bool = False):
     if missing:
         raise RuntimeError(f"kernels never measured on a main path: "
                            f"{missing}")
-    return [dict(s.records[k], launches=s.launches[k]) for k in KERNELS]
+    return [dict(s.records[k], launches=s.launches[k],
+                 launches_from=COMPARISON.get(k, "main paths"))
+            for k in KERNELS]
 
 
 def main() -> int:

@@ -33,6 +33,7 @@ from .api.api import (SparseMatrix, create_csr_hw_matrix,
                       delete_csr_hw_x_vector, pack, spmv, spmv_hw, unpack)
 from .api.autotune import autotune_candidates, autotune_pack
 from .kernels.bsr import BSRDevice, bsr_partials, bsr_spmv
+from .kernels.final_rows import FinalRows, final_rows
 from .kernels.f64emu import DF64GStreamDevice, spmm_df64
 from .kernels.spmm import (final_gather_multi, gstream_chunk_sums_multi,
                            gstream_chunk_sums_multi_f64, spmm_gstream)
@@ -52,7 +53,8 @@ __all__ = [
     "fused_spmv", "GStreamDevice", "final_gather", "final_gather_multi",
     "gstream_chunk_sums", "gstream_chunk_sums_multi", "spmm_gstream",
     "DF64FusedDevice", "DF64GStreamDevice", "spmm_df64", "fused_spmv_f64",
-    "gstream_chunk_sums_f64", "final_gather_f64",
+    "gstream_chunk_sums_f64", "final_gather_f64", "FinalRows",
+    "final_rows",
     "gstream_chunk_sums_multi_f64",
     "BSRDevice", "bsr_partials", "bsr_spmv", "SpGEMMPlan", "spgemm",
     "CGResult", "bicgstab", "cg", "cg_df64", "cg_step", "gmres",

@@ -1,4 +1,5 @@
 from .bsr import BSRDevice, bsr_partials, bsr_partials_reference, bsr_spmv
+from .final_rows import FinalRows, final_rows_reference
 from .spmm import (final_gather_multi, final_gather_multi_reference,
                    gstream_chunk_sums_multi,
                    gstream_chunk_sums_multi_reference, spmm_gstream)
@@ -12,6 +13,7 @@ from .spmv_gstream import (GStreamDevice, final_gather,
 
 __all__ = ["BSRDevice", "FusedDevice", "GStreamDevice", "SpGEMMPlan",
            "bsr_partials", "bsr_partials_reference", "bsr_spmv",
+           "FinalRows", "final_rows_reference",
            "final_gather",
            "final_gather_multi", "final_gather_multi_reference",
            "final_gather_reference", "fused_spmm", "fused_spmm_reference",

@@ -1,8 +1,11 @@
 """Build the port's CUDA sources into one shared library and load it.
 
-The fused SpMV, the forward, the k-plane forward and the final template
-their kernels on the real type: one source holds a kernel's f32 and f64
-(native FP64) forms, each behind its own entry point.  The BSR partials
+The fused SpMV, the forward, the k-plane forward, the row-sorted final
+(``final_rows.cu``, the classic devices' final level since it replaced
+the per-instance final of ``gstream_final.cu`` on their path) and the
+per-instance final template their kernels on the real type: one source
+holds a kernel's f32 and f64 (native FP64) forms, each behind its own
+entry point.  The BSR partials
 (``bsr_spmv.cu``) are f32 only, as the TPU's BSR device; the stage ladder
 (``micro_ladder.cu``, ``bench/micro.py``), the fused kernel's stage
 split (``fused_stages.cu``, ``bench/fused_stages.py``), the
@@ -137,6 +140,10 @@ def library() -> _Library:
     lib.gstream_final_f64_launch.argtypes = [p] * 6 + [ll] + [i] * 3 + [p]
     lib.gstream_spmm_f64_launch.restype = i
     lib.gstream_spmm_f64_launch.argtypes = [p] * 5 + [ll] + [i] * 4 + [p]
+    lib.final_rows_launch.restype = i
+    lib.final_rows_launch.argtypes = [p] * 4 + [ll, i, p, p]
+    lib.final_rows_f64_launch.restype = i
+    lib.final_rows_f64_launch.argtypes = [p] * 4 + [ll, i, p, p]
     lib.bsr_spmv_launch.restype = i
     lib.bsr_spmv_launch.argtypes = [p] * 4 + [ll, p]
     lib.micro_ladder_launch.restype = i

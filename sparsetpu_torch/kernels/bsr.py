@@ -10,9 +10,10 @@ at position 8b + i belongs to y row 8 * brow[b] + i.  ``spmv`` is
 
   partials  ``bsr_partials``: the (n_blocks, 8) row sums of every block
             times its x segment (``csrc/bsr_spmv.cu``);
-  final     the legacy final level (``spmv_gstream.final_gather``) over the
-            partials, or, where no final builds, a segment sum over the
-            block rows by ``index_add_``.
+  final     the legacy final level over the partials, as its row-sorted
+            gather-sum (``final_rows.final_rows``, built at upload from the
+            level's tables), or, where no final builds, a segment sum over
+            the block rows by ``index_add_``.
 
 The padding is kept although the card's grid does not need it: the final
 level is then byte-identical to the JAX package's.  The TPU kernel packs
@@ -138,7 +139,8 @@ class BSRDevice(nn.Module):
         child_row[child_row >= self.rows_pad] = self.rows_pad
         self.plan = _FinalLevel.build(child_row, self.rows_pad)
         self.final = (final_device(self.plan, self.rows_pad, child_row.size,
-                                   dev) if self.plan is not None else None)
+                                   dev, tables=False)
+                      if self.plan is not None else None)
         self.register_buffer("brow", torch.from_numpy(brow).to(dev)
                              if self.plan is None else None)
 

@@ -22,9 +22,11 @@ place of ``DF64``.
                          forward once then the f64 finish a plane here.
 
 The kernels are the f64 forms of ``csrc/fused_spmv.cu``,
-``gstream_spmv.cu``, ``gstream_final.cu`` and ``gstream_spmm.cu``, behind
-``fused_spmv_f64``, ``gstream_chunk_sums_f64``, ``final_gather_f64`` and
-``gstream_chunk_sums_multi_f64``.
+``gstream_spmv.cu``, ``final_rows.cu`` and ``gstream_spmm.cu``, behind
+``fused_spmv_f64``, ``gstream_chunk_sums_f64``, ``final_rows`` (on f64
+positions) and ``gstream_chunk_sums_multi_f64``; the TPU layout's f64
+final ``final_gather_f64`` (``gstream_final.cu``) stays behind
+``FinalDevice.grid``.
 """
 
 from __future__ import annotations
@@ -82,8 +84,8 @@ class DF64GStreamDevice(GStreamDevice):
     plane in float64, no F levels, and the legacy ``_FinalLevel`` or, when
     none builds, the segment-sum route, in float64.  ``spmv`` returns a
     float64 y.  ``finish_vec`` is the JAX ``finish_df64``
-    (``f64emu.py:527-581``): the f64 final, then its spills by
-    ``index_add_``, with the padded spills dropped at upload; or the f64
+    (``f64emu.py:527-581``): the f64 final with its spills, one row-sorted
+    gather-sum in FP64 (the padded spills dropped at upload); or the f64
     segment-sum.  ``DF64GStreamDevice(matrix, device)`` packs an f64 CSR
     matrix; ``from_packed`` uploads a (hi, lo) pack pair."""
 

@@ -10,21 +10,24 @@ arrays the JAX ``GStreamDevice`` uploads) and its finish plan
             (``csrc/gstream_spmv.cu``; window or per-tile-base scheme);
   F levels  the same forward kernel on 0/1-incidence packs that pre-reduce
             heavy rows, their outputs appended to the position vector;
-  final     ``final_gather``: the gather-accumulate final level whose
-            output cell (r // 128, r % 128) IS y[r]
-            (``csrc/gstream_final.cu``; legacy or flat scheme), then the
-            final's spills by ``index_add_``;
+  final     ``final_rows.final_rows``: the final level (every level of a
+            multi final, and the spills) as one row-sorted gather-sum built
+            at upload from the TPU tables (``csrc/final_rows.cu``);
 
 or, when no final could be built, a segment-sum of the position vector
-(``spmv_coo.spmv_chunked``), the algorithm's own route.  Each wrapper runs
-its plain PyTorch version (``gstream_chunk_sums_reference``,
-``final_gather_reference``) for tensors on the CPU, and launches its kernel
-(or raises) for tensors on a CUDA device.
+(``spmv_coo.spmv_chunked``), the algorithm's own route.  The TPU layout's
+per-instance final, ``final_gather`` (``csrc/gstream_final.cu``; legacy or
+flat scheme), stays behind ``FinalDevice.grid``: y's grid, whose output
+cell (r // 128, r % 128) IS y[r].  Each wrapper runs its plain PyTorch
+version (``gstream_chunk_sums_reference``, ``final_gather_reference``)
+for tensors on the CPU, and launches its kernel (or raises) for tensors on
+a CUDA device.
 
 The f64 device (``f64emu.DF64GStreamDevice``) is this device with float64
 values, positions and y: the wrappers hand float64 inputs to their native
-FP64 forms, ``gstream_chunk_sums_f64`` (window scheme) and
-``final_gather_f64`` (legacy scheme), whose plain versions are the same
+FP64 forms, ``gstream_chunk_sums_f64`` (window scheme) and ``final_rows``
+(its f64 entry point; the per-instance ``final_gather_f64``, legacy
+scheme, behind ``grid``), whose plain versions are the same
 ``..._reference`` functions, which run in the inputs' real type.
 """
 
@@ -43,6 +46,7 @@ from ..pack.final_levels import (_FinalLevel, _FinalLevelMulti,
 from ..pack.gather_stream import CHUNK, LANES, STRIPE, GStreamMatrix
 from ..utils.device import require_device
 from ._build import check, library
+from .final_rows import FinalRows, final_rows
 from .spmv_coo import spmv_chunked
 
 
@@ -458,13 +462,24 @@ final_gather_f64.launches = 0
 class FinalDevice(nn.Module):
     """One final level (a host ``_FinalLevel`` or ``_FinalLevelV2``) on the
     device; ``apply(vec)`` is y from the flat position vector ``vec`` of
-    ``n_positions`` chunk sums.  Spills with ``spill_row == nr_rows`` (the
+    ``n_positions`` chunk sums, through ``rows``, the level's
+    ``FinalRows`` built at upload (``rows=False``: none, for a level of a
+    ``FinalMultiDevice``, which builds one for all its levels).  The TPU
+    tables stay on the device for the k-plane ``apply_multi`` where
+    ``tables``; otherwise they are freed once ``rows`` is built, and
+    ``grid`` and ``grid_multi`` upload them anew from the host level for
+    each call (``with_tables``).  Spills with ``spill_row == nr_rows`` (the
     padded slots of a uniform-shape final) are dropped at upload, as the
     JAX package drops them (``mode="drop"``)."""
 
-    def __init__(self, final, nr_rows: int, n_positions: int, device):
+    TABLES = ("step_meta", "tile_bases", "inst_start", "cells", "route",
+              "spill_pos", "spill_row")
+
+    def __init__(self, final, nr_rows: int, n_positions: int, device,
+                 rows: bool = True, tables: bool = True):
         super().__init__()
         dev = require_device(device)
+        self.host, self.n_positions = final, n_positions
         self.v2 = isinstance(final, _FinalLevelV2)
         self.tps = final.tiles_per_step
         self.G = final.GL_f if self.v2 else final.G
@@ -489,26 +504,43 @@ class FinalDevice(nn.Module):
         self.n_spills = int(spill_pos.size)
         self.register_buffer("spill_pos", up(spill_pos, torch.int64))
         self.register_buffer("spill_row", up(spill_row, torch.int64))
+        self.rows = (FinalRows.from_levels([self], nr_rows, n_positions, dev)
+                     if rows else None)
+        if not tables:
+            self.drop_tables()
+
+    def drop_tables(self) -> None:
+        """Free the TPU tables on the device (``rows`` was built from
+        them)."""
+        for k in self.TABLES:
+            setattr(self, k, None)
+
+    def with_tables(self, device) -> "FinalDevice":
+        """This level with its TPU tables on ``device``: itself where they
+        stayed, else a copy uploaded from the host level (no ``rows``)."""
+        if self.cells is not None:
+            return self
+        return FinalDevice(self.host, self.nr_rows, self.n_positions, device,
+                           rows=False)
 
     def grid(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
         """y's grid (nt_pad, 128) through ``kernel`` (default the wrapper
         ``final_gather``; ``final_gather_reference`` to compare)."""
+        t = self.with_tables(vec.device)
         flat = vec.reshape(-1)
         need = self.x_pad_rows * STRIPE
         if flat.shape[0] < need:
             flat = nn.functional.pad(flat, (0, need - flat.shape[0]))
         x2 = flat[:need].view(-1, STRIPE)
         return (kernel or final_gather)(
-            self.step_meta, self.tile_bases, self.inst_start, x2, self.cells,
-            self.route, tps=self.tps, G=self.G, nw=self.nw, GS=self.GS,
+            t.step_meta, t.tile_bases, t.inst_start, x2, t.cells, t.route,
+            tps=self.tps, G=self.G, nw=self.nw, GS=self.GS,
             nt_pad=self.nt_pad, v2=self.v2)
 
     def apply(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
-        y = self.grid(vec, kernel).view(-1)[:self.nr_rows]
-        if self.n_spills:
-            # in place: y is a view of this call's own grid
-            y.index_add_(0, self.spill_row, vec.reshape(-1)[self.spill_pos])
-        return y
+        """y (nr_rows,) through ``kernel`` (default the wrapper
+        ``final_rows``; ``final_rows_reference`` to compare)."""
+        return (kernel or final_rows)(vec.reshape(-1), self.rows)
 
     def grid_multi(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
         """The k planes' grid, row-major (nt_pad*128, k), from the k-plane
@@ -516,21 +548,23 @@ class FinalDevice(nn.Module):
         through ``kernel`` (default the wrapper
         ``spmm.final_gather_multi``)."""
         from .spmm import final_gather_multi          # spmm imports this
+        t = self.with_tables(vec.device)
         need = self.x_pad_rows * STRIPE
         if vec.shape[0] < need:
             vec = nn.functional.pad(vec, (0, 0, 0, need - vec.shape[0]))
         return (kernel or final_gather_multi)(
-            self.step_meta, self.tile_bases, self.inst_start,
-            vec[:need].contiguous(), self.cells, self.route, tps=self.tps,
-            G=self.G, nw=self.nw, GS=self.GS, nt_pad=self.nt_pad, v2=self.v2)
+            t.step_meta, t.tile_bases, t.inst_start, vec[:need].contiguous(),
+            t.cells, t.route, tps=self.tps, G=self.G, nw=self.nw, GS=self.GS,
+            nt_pad=self.nt_pad, v2=self.v2)
 
     def apply_multi(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
         """Y (nr_rows, k) from the k-plane position vector (n_positions,
         k): the multi-plane final, then the spills' k-plane adds."""
-        Y = self.grid_multi(vec, kernel)[:self.nr_rows]
+        t = self.with_tables(vec.device)
+        Y = t.grid_multi(vec, kernel)[:self.nr_rows]
         if self.n_spills:
             # in place: Y is a view of this call's own grid
-            Y.index_add_(0, self.spill_row, vec[self.spill_pos])
+            Y.index_add_(0, t.spill_row, vec[t.spill_pos])
         return Y
 
 
@@ -577,28 +611,37 @@ def _spills(final, nr_rows: int, n_positions: int):
 
 class FinalMultiDevice(nn.Module):
     """``_FinalLevelMulti`` on the device: y is the sum of one flat final
-    per group of <= 8 column blocks, in group order."""
+    per group of <= 8 column blocks, and of their spills, all folded into
+    one ``FinalRows`` at upload; ``levels`` are the groups, their TPU
+    tables freed once ``rows`` is built (each level's ``grid`` uploads
+    them anew)."""
 
     def __init__(self, final, nr_rows: int, n_positions: int, device):
         super().__init__()
         self.levels = nn.ModuleList(
-            FinalDevice(lvl, nr_rows, n_positions, device)
+            FinalDevice(lvl, nr_rows, n_positions, device, rows=False)
             for lvl in final.levels)
+        self.rows = FinalRows.from_levels(list(self.levels), nr_rows,
+                                          n_positions, require_device(device))
+        for lvl in self.levels:
+            lvl.drop_tables()
 
     def apply(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
-        y = None
-        for lvl in self.levels:
-            yg = lvl.apply(vec, kernel)
-            y = yg if y is None else y + yg
-        return y
+        """y (nr_rows,) through ``kernel`` (default the wrapper
+        ``final_rows``; ``final_rows_reference`` to compare)."""
+        return (kernel or final_rows)(vec.reshape(-1), self.rows)
 
 
-def final_device(final, nr_rows: int, n_positions: int, device):
-    """The device module of a host final level."""
+def final_device(final, nr_rows: int, n_positions: int, device,
+                 tables: bool = True):
+    """The device module of a host final level; ``tables``: a single
+    level keeps its TPU tables on the device (for the k-plane
+    ``apply_multi``; a multi final never does)."""
     if isinstance(final, _FinalLevelMulti):
         return FinalMultiDevice(final, nr_rows, n_positions, device)
     if isinstance(final, (_FinalLevel, _FinalLevelV2)):
-        return FinalDevice(final, nr_rows, n_positions, device)
+        return FinalDevice(final, nr_rows, n_positions, device,
+                           tables=tables)
     raise TypeError(f"not a final level: {type(final).__name__}")
 
 
@@ -629,8 +672,13 @@ class GStreamDevice(nn.Module):
                                      for fp in plan.flevels)
         n_positions = packed.chunk_row.size + sum(
             fp.chunk_row.size for fp in plan.flevels)
-        self.final = (final_device(plan.final, packed.nr_rows, n_positions,
-                                   dev) if plan.final is not None else None)
+        # the TPU tables stay on the device only where spmm_gstream's
+        # k-plane final reads them: an f32 final with no F levels
+        self.final = (final_device(
+            plan.final, packed.nr_rows, n_positions, dev,
+            tables=not len(plan.flevels)
+            and self.stream.values.dtype != torch.float64)
+            if plan.final is not None else None)
         # the segment-sum route reads only the positions that hold a row:
         # index_add_ of every padded position into the trap row serialises
         # on that one address
@@ -695,7 +743,8 @@ class GStreamDevice(nn.Module):
         return vec
 
     def finish_vec(self, chunk_sums: torch.Tensor) -> torch.Tensor:
-        """chunk partial sums -> y (the on-device accum_results)."""
+        """chunk partial sums -> y (the on-device accum_results): the
+        final's one row-sorted gather-sum, or the segment-sum route."""
         vec = self.positions(chunk_sums)
         if self.final is not None:
             return self.final.apply(vec)

@@ -15,6 +15,7 @@ import torch
 import sparsetpu_torch as st
 from sparsetpu_torch import _host
 from sparsetpu_torch.kernels import spmv_gstream as sg
+from sparsetpu_torch.kernels.final_rows import final_rows_reference
 
 
 def _close_to(y, ref):
@@ -53,9 +54,14 @@ def test_kernels_match_plain_on_card(cuda, kw, vdt):
     _close_to(ck.cpu().numpy(), cr.cpu().numpy())
     vec = dev.positions(cr)
     yk = dev.final.apply(vec)
-    yr = dev.final.apply(vec, sg.final_gather_reference)
+    yr = dev.final.apply(vec, final_rows_reference)
     torch.cuda.synchronize()
     _close_to(yk.cpu().numpy(), yr.cpu().numpy())
+    # the TPU layout's per-instance final, each level against its plain
+    # version
+    for lvl in getattr(dev.final, "levels", [dev.final]):
+        _close_to(lvl.grid(vec).cpu().numpy(),
+                  lvl.grid(vec, sg.final_gather_reference).cpu().numpy())
     y = dev.spmv(x2, x_is_packed=True).cpu().numpy()
     _gold_ok(m, np.asarray(x2.reshape(-1)[:m.nr_cols].cpu()), y,
              "bfloat16" if vdt is not None else np.float32)

@@ -100,13 +100,14 @@ def test_port_sources_never_import_jax():
     """No import of jax or sparsetpu, and no path built into the JAX
     package's directory (a ``"sparsetpu"`` path component or a
     ``sparsetpu/`` string other than a ``file.py:line`` citation of the
-    TPU kernel a port replaces), in the port's sources or the smoke
-    script."""
+    TPU kernel a port replaces), in the port's sources, the smoke script
+    or the classic routes' A/B script."""
     pat = re.compile(r"^\s*(import|from)\s+(jax\b|sparsetpu(\.|\s|$))",
                      re.M)
     path = re.compile(r"""["']([^"'\s]*/)?sparsetpu(/[^"'\s]*)?["']""")
     cite = re.compile(r"""\.py:\d+["']$""")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, n) for n in ("chip_smoke.py",
+                                              "classic_calls.py")]
     for root, _, names in os.walk(os.path.join(REPO, "sparsetpu_torch")):
         files += [os.path.join(root, n) for n in names
                   if n.endswith((".py", "Makefile"))]
