@@ -18,18 +18,19 @@ Builds the CUDA kernels and the native packer from this checkout, then:
                    every classic final runs as the row-sorted final
                    (``csrc/final_rows.cu``, the map built at upload),
                    held to its plain version and to the TPU layout's plain
-                   final (the per-instance grids, the spills, the adds);
+                   final (the per-level grids, the spills, the adds);
   headline         the bench.py matrix (200k x 100k, 50 nnz/row, ~10M nnz):
                    the fused main path;
   wide x           a stand-in with the shape and nnz of SNAP/roadNet-CA
                    (1,971,281^2, 5,533,214 nnz, uniform random columns):
                    x too wide for the fused layout, so the whole matrix goes
                    to the classic device; its final (8 sections and the
-                   spills in one map) timed as the row-sorted kernel, as
-                   the per-instance path it replaced (driven once, as a
-                   comparison), plain and as cuSPARSE on the same 0/1
-                   matrix; a thread a row against a warp a row on uniform
-                   rows of 4-4096 entries (the short bin's threshold);
+                   spills in one map) timed as the row-sorted kernel,
+                   plain and as cuSPARSE on the same 0/1 matrix; a thread
+                   a row against a warp a row on uniform rows of 4-4096
+                   entries (the short bin's threshold), and on k = 8 and 72
+                   planes a group of threads a row against a warp a plane
+                   vector (the k-plane form's);
   web graph        the webbase-1M stand-in (1,000,005^2, power-law rows):
                    the heavy-row hybrid, light rows fused and heavy rows on a
                    classic device with F levels and the legacy final;
@@ -40,21 +41,28 @@ and Y = A @ X (SpMM) beside them:
 
   regimes          every fused and classic regime above at k = 1, 3, 8,
                    plus P = 8 and shuffled (legacy-final) packs and finals
-                   that spill: the fused SpMM, the k-plane forward and the
-                   k-plane finals against their plain versions, Y against
-                   ``spmm_gold``;
+                   that spill: the fused SpMM, the k-plane forward (also
+                   on the F levels) and the k-plane final (the row-sorted
+                   map on k planes) against their plain versions, Y
+                   against ``spmm_gold``;
   headline k = 8   the fused SpMM (``sm @ X``), against eight ``sm @ x``
                    calls and cuSPARSE;
   headline k = 72  (the smallest multiple of 8 the fused SpMM rejects on
                    an H100): ``sm @ X`` on the lazily built classic
-                   device, the k-plane forward and flat final;
+                   device, the k-plane forward and the k-plane final (flat
+                   level), the forward beside its HBM bound and the bytes
+                   of its gathers of X's rows, which X's place in the L2
+                   serves;
+  crossing         ``sm @ X`` at k = 72, 96 and 128 on that device, each
+                   beside k ``sm @ x`` calls (k fused SpMVs) and cuSPARSE;
   shuffled k = 8   ``spmm_gstream`` on the headline's
                    ``pack_gstream(shuffle_lanes=True)``: the k-plane
-                   forward and legacy final;
+                   forward and the k-plane final (legacy level);
   web graph k = 4  the hybrid: fused SpMM on the light rows, the k-plane
-                   forward then per-plane F levels and legacy final on the
-                   heavy rows;
-  wide x k = 2     the k-plane forward, then per-plane flat finals.
+                   forward on the heavy rows and on their F levels, then
+                   the k-plane final (legacy level, long rows);
+  wide x k = 2     the k-plane forward, then the k-plane final (8 flat
+                   sections in one map).
 
 and f64 (DOUBLE=1, native FP64 kernels) beside them:
 
@@ -69,7 +77,7 @@ and f64 (DOUBLE=1, native FP64 kernels) beside them:
   wide x f64       the roadNet-CA stand-in with f64 values: ``sm @ x`` on
                    the classic f64 device (forward and legacy final, with
                    its spills), and ``sm @ X`` at k = 8 (the k-plane f64
-                   forward, then the final a plane).
+                   forward, then the k-plane f64 final).
 
 Each f64 kernel is held to its plain version at rtol 1e-12, atol 1e-12 *
 max(1, max|ref|), and each f64 y (Y column by column) to the gold at the
@@ -162,10 +170,7 @@ each of its kernels is compared with its plain version on the path's own
 inputs and timed with CUDA events beside its bound (the bytes it must move
 at the card's HBM rate) and one PyTorch call computing the same function.
 Every check raises on failure, so any failed phase exits non-zero.  The
-line before the last is the kernels' JSON record (``launches_from`` says
-whether a kernel's launches came from main paths or, for the per-instance
-finals the row-sorted final replaced, from the comparison path that
-drives them beside it); the last line is
+line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Needs one card; exits non-zero without
 one, and without the repository beside it.
 """
@@ -199,46 +204,32 @@ KERNELS = {
                             "sparsetpu/kernels/spmv_pallas.py:63"),
     "gstream_spmv_tile_base": ("sparsetpu_torch/csrc/gstream_spmv.cu",
                                "sparsetpu/kernels/spmv_pallas.py:101"),
-    "gstream_final_flat": ("sparsetpu_torch/csrc/gstream_final.cu",
-                           "sparsetpu/kernels/spmv_pallas.py:767"),
-    "gstream_final_legacy": ("sparsetpu_torch/csrc/gstream_final.cu",
-                             "sparsetpu/kernels/spmv_pallas.py:196"),
     "fused_spmm": ("sparsetpu_torch/csrc/fused_spmm.cu",
                    "sparsetpu/kernels/spmv_fused.py:144"),
     "gstream_spmm": ("sparsetpu_torch/csrc/gstream_spmm.cu",
                      "sparsetpu/kernels/spmm.py:28"),
-    "gstream_final_multi_flat": ("sparsetpu_torch/csrc/gstream_final_multi.cu",
-                                 "sparsetpu/kernels/spmm.py:156"),
-    "gstream_final_multi_legacy": (
-        "sparsetpu_torch/csrc/gstream_final_multi.cu",
-        "sparsetpu/kernels/spmm.py:117"),
     "fused_spmv_f64": ("sparsetpu_torch/csrc/fused_spmv.cu",
                        "sparsetpu/kernels/spmv_fused.py:507"),
     "gstream_spmv_window_f64": ("sparsetpu_torch/csrc/gstream_spmv.cu",
                                 "sparsetpu/kernels/f64emu.py:163"),
-    "gstream_final_legacy_f64": ("sparsetpu_torch/csrc/gstream_final.cu",
-                                 "sparsetpu/kernels/f64emu.py:196"),
     "gstream_spmm_f64": ("sparsetpu_torch/csrc/gstream_spmm.cu",
                          "sparsetpu/kernels/f64emu.py:319"),
     "bsr_partials": ("sparsetpu_torch/csrc/bsr_spmv.cu",
                      "sparsetpu/kernels/bsr.py:30"),
     "rates_forward": ("sparsetpu_torch/csrc/gstream_spmv.cu",
                       "sparsetpu/pack/rates.py:115"),
-    # the classic devices' final since the row-sorted redesign: #4 and #5
-    # in f32, #12 in f64 (the per-instance kernels above stay behind
-    # ``FinalDevice.grid``)
+    # the classic devices' final, the row-sorted map: #4 and #5 in f32,
+    # #12 in f64; on k planes #8 and #9 (the f64 SpMM's k-plane final
+    # stands for #12 a plane, as the JAX package finishes it)
     "final_rows": ("sparsetpu_torch/csrc/final_rows.cu",
                    "sparsetpu/kernels/spmv_pallas.py:767, :196"),
     "final_rows_f64": ("sparsetpu_torch/csrc/final_rows.cu",
                        "sparsetpu/kernels/f64emu.py:196"),
+    "final_rows_multi": ("sparsetpu_torch/csrc/final_rows.cu",
+                         "sparsetpu/kernels/spmm.py:156, :117"),
+    "final_rows_multi_f64": ("sparsetpu_torch/csrc/final_rows.cu",
+                             "sparsetpu/kernels/f64emu.py:196"),
 }
-# kernels that no user path launches any more: their launches on the
-# kernels line come from the path they were replaced on, driven beside the
-# new kernel for comparison (``Smoke.final``)
-COMPARISON = {k: "comparison: the per-instance final path that the "
-                 "row-sorted final replaced" for k in (
-                     "gstream_final_flat", "gstream_final_legacy",
-                     "gstream_final_legacy_f64")}
 # the stage ladder: one entry a stage (bench_ladder's keys)
 LADDER_GS = (1, 2, 4, 8, 16, 32)
 LADDER_STAGES = ("stream", "lane", "dual", "tilebase") + tuple(
@@ -441,8 +432,8 @@ class Smoke:
                                            select_chains)
         from sparsetpu_torch.bench.harness import call_ms, stream_ms
         from sparsetpu_torch.formats.gold import spmm_gold
-        from sparsetpu_torch.kernels import (bsr, f64emu, spmm, spmv_fused,
-                                             spmv_gstream)
+        from sparsetpu_torch.kernels import (_build, bsr, f64emu, spmm,
+                                             spmv_fused, spmv_gstream)
         from sparsetpu_torch.kernels import final_rows as fr
         from sparsetpu_torch.pack import final_levels, rates
         self.torch, self.st, self.h = torch, st, _host
@@ -450,11 +441,12 @@ class Smoke:
         self.fp, self.sc = fused_proto, select_chains
         self.fused, self.sg, self.fl = spmv_fused, spmv_gstream, final_levels
         self.f64, self.bsr, self.fr = f64emu, bsr, fr
-        self.sp, self.spmm_gold = spmm, spmm_gold
+        self.sp, self.spmm_gold, self.build = spmm, spmm_gold, _build
         self._call_ms, self._stream_ms = call_ms, stream_ms
         self.dev = torch.device(device)
         self.hbm = hbm
         self.records = {}                 # name -> the JSON entry
+        self.calls = {}                   # tag -> whole_call_multi's ms
         self.launches = {k: 0 for k in KERNELS}
 
     # -- timing -------------------------------------------------------------
@@ -469,14 +461,12 @@ class Smoke:
     def _zero_counts(self):
         self.fused.fused_spmv.launches = 0
         self.sg.gstream_chunk_sums.launches.clear()
-        self.sg.final_gather.launches.clear()
         self.fused.fused_spmm.launches = 0
         self.sp.gstream_chunk_sums_multi.launches = 0
-        self.sp.final_gather_multi.launches.clear()
         self.fused.fused_spmv_f64.launches = 0
         self.sg.gstream_chunk_sums_f64.launches = 0
-        self.sg.final_gather_f64.launches = 0
         self.fr.final_rows.launches.clear()
+        self.fr.final_rows_multi.launches.clear()
         self.sp.gstream_chunk_sums_multi_f64.launches = 0
         self.bsr.bsr_partials.launches = 0
         self.micro.ladder_stage.launches.clear()
@@ -490,28 +480,24 @@ class Smoke:
 
     def _counts(self):
         f = self.sg.gstream_chunk_sums.launches
-        w = self.sg.final_gather.launches
-        mw = self.sp.final_gather_multi.launches
         r = self.fr.final_rows.launches
+        rm = self.fr.final_rows_multi.launches
         return {"fused_spmv": self.fused.fused_spmv.launches,
                 "gstream_spmv_window": f["window"],
                 "gstream_spmv_tile_base": f["tile_base"],
-                "gstream_final_flat": w["flat"],
-                "gstream_final_legacy": w["legacy"],
                 "fused_spmm": self.fused.fused_spmm.launches,
                 "gstream_spmm": self.sp.gstream_chunk_sums_multi.launches,
-                "gstream_final_multi_flat": mw["flat"],
-                "gstream_final_multi_legacy": mw["legacy"],
                 "fused_spmv_f64": self.fused.fused_spmv_f64.launches,
                 "gstream_spmv_window_f64":
                     self.sg.gstream_chunk_sums_f64.launches,
-                "gstream_final_legacy_f64": self.sg.final_gather_f64.launches,
                 "gstream_spmm_f64":
                     self.sp.gstream_chunk_sums_multi_f64.launches,
                 "bsr_partials": self.bsr.bsr_partials.launches,
                 "rates_forward": 0,
                 "final_rows": r["short"] + r["long"],
                 "final_rows_f64": r["short_f64"] + r["long_f64"],
+                "final_rows_multi": rm["short"] + rm["long"],
+                "final_rows_multi_f64": rm["short_f64"] + rm["long_f64"],
                 **{f"ladder_{k}": self.micro.ladder_stage.launches[k]
                    for k in LADDER_STAGES},
                 "stages_fwd": self.fs.fused_forward.launches,
@@ -555,18 +541,12 @@ class Smoke:
             if isinstance(d, self.fused.FusedDevice):
                 return {"fused_spmv_f64"}
             return {"gstream_spmm_f64"} | (
-                {"final_rows_f64"} if d.final is not None else set())
+                {"final_rows_multi_f64"} if d.final is not None else set())
         if isinstance(d, self.fused.FusedDevice):
             return {"fused_spmm"}
-        ks = {"gstream_spmm"}
-        if isinstance(d.final, self.sg.FinalDevice) and not len(d.flevels):
-            return ks | {"gstream_final_multi_flat" if d.final.v2
-                         else "gstream_final_multi_legacy"}
-        if len(d.flevels):
-            ks.add("gstream_spmv_window")
-        if d.final is not None:
-            ks.add("final_rows")
-        return ks
+        # the F levels' k planes run the same forward kernel
+        return {"gstream_spmm"} | (
+            {"final_rows_multi"} if d.final is not None else set())
 
     def drive(self, tag, fn, expected, main=True, rename=None):
         """The main path: counts set to 0 just before ``fn``, read just
@@ -595,7 +575,8 @@ class Smoke:
         return y
 
     # -- per-kernel measurement ------------------------------------------------
-    def record(self, name, tag, err, ms, plain_ms, nbytes, flops, lib_ms):
+    def record(self, name, tag, err, ms, plain_ms, nbytes, flops, lib_ms,
+               extra=None):
         byte_ms = nbytes / (self.hbm * 1e9) * 1e3
         real = "float64" if name.endswith("_f64") else "float32"
         op_ms = flops / (TFLOPS[real] * 1e12) * 1e3
@@ -613,7 +594,7 @@ class Smoke:
                 "name": name, "route": "cuda", "source": src,
                 "replaces": rep, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": by,
-                "library_ms": lib_ms}
+                "library_ms": lib_ms, **(extra or {})}
 
     def library_spmv(self, rows, cols, vals, shape, x, ref,
                      back_to_back=False):
@@ -681,8 +662,12 @@ class Smoke:
 
     def forward_multi(self, fwd, X, tag, measure=True):
         """The k-plane forward kernel vs its plain version (X row-major
-        (padded_cols, k)); measured when ``measure``.  Returns the plain
-        chunk sums (n_positions, k)."""
+        (padded_cols, k)); measured when ``measure``: beside its HBM bound,
+        the bytes of its gathers (every slot that reads x gathers its row
+        of X, k values; X at full size fits the L2), and the rate at which
+        the kernel moved them.  Returns the plain chunk sums (n_positions,
+        k)."""
+        sg = self.sg
         ref = self.sp.gstream_chunk_sums_multi_reference
         ck, cr = fwd.forward_multi(X), fwd.forward_multi(X, ref)
         self.sync()
@@ -691,93 +676,95 @@ class Smoke:
             return cr
         ms = self.call_ms(lambda: fwd.forward_multi(X))
         plain_ms = self.call_ms(lambda: fwd.forward_multi(X, ref), repeats=10)
+        b2b = self.back_to_back(lambda: fwd.forward_multi(X))
         rows, cols, vals, n_out = self._forward_incidence(fwd)
         lib_ms = self.library_spmv(rows, cols, vals, (n_out, X.shape[0]), X,
                                    cr)
+        del rows, cols, vals
         nb = _nbytes(fwd.values, fwd.meta16, fwd.step_window, fwd.tile_base,
                      X, ck)
         name = ("gstream_spmm_f64" if X.dtype == self.torch.float64
                 else "gstream_spmm")
+        k = X.shape[1]
+        _, ok = sg.forward_gather_index(fwd.meta16, fwd.step_window, T=fwd.T,
+                                        G=fwd.G, GL=fwd.GL,
+                                        tile_base=fwd.tile_base)
+        live = int(ok.sum())
+        gather = live * k * X.element_size()
         self.record(name, tag, err, ms, plain_ms, nb,
-                    2 * fwd.values.numel() * X.shape[1], lib_ms)
+                    2 * fwd.values.numel() * k, lib_ms,
+                    extra={"gather_bytes": gather,
+                           "gather_gbps": gather / ms / 1e6})
+        print(f"  {name} [{tag}]: k={k}, plane vectors of "
+              f"{self.build.vector_width(k, X, ck)} values, "
+              f"{b2b:.4f} ms back to back | gathers: {live} of "
+              f"{ok.numel()} slots read x, {gather} B (X {_nbytes(X)} B), "
+              f"moved at {gather / ms / 1e6:.0f} GB/s a call, "
+              f"{gather / b2b / 1e6:.0f} back to back", flush=True)
         return cr
 
-    def _final_incidence(self, levels, nr_rows=None, n_positions=None):
-        """(rows, cols, shape) of final levels as one 0/1 sparse matrix, y
-        row by position, from their TPU tables: the grid (every out tile's
-        rows), or, given ``nr_rows`` and ``n_positions``, what ``apply``
-        computes: grid rows past nr_rows and positions past n_positions
-        dropped, the spills in."""
-        torch, sg = self.torch, self.sg
-        rows, cols = [], []
-        for lvl in levels:
-            idx, ok = sg.final_gather_index(
-                lvl.step_meta, lvl.tile_bases, lvl.cells, lvl.route,
-                tps=lvl.tps, G=lvl.G, nw=lvl.nw, GS=lvl.GS, v2=lvl.v2)
-            o = lvl.step_meta[:, lvl.nw + 1].long().view(-1, 1, 1, 1)
-            t = torch.arange(lvl.tps, device=self.dev).view(1, -1, 1, 1)
-            lane = torch.arange(128, device=self.dev).view(1, 1, 1, -1)
-            out = ((o * lvl.tps + t) * 128 + lane).expand_as(idx)
-            if nr_rows is not None:
-                ok = ok & (out < nr_rows) & (idx < n_positions)
-            rows.append(out[ok])
-            cols.append(idx[ok])
-        if nr_rows is not None:
-            rows += [lvl.spill_row for lvl in levels]
-            cols += [lvl.spill_pos for lvl in levels]
-            return torch.cat(rows), torch.cat(cols), (nr_rows, n_positions)
-        return (torch.cat(rows), torch.cat(cols),
-                (max(lvl.nt_pad for lvl in levels) * 128,
-                 max(lvl.x_pad_rows for lvl in levels) * 128))
+    def _final_incidence(self, final):
+        """(rows, cols, shape) of a device final as one 0/1 sparse matrix,
+        y row by position: what ``apply`` computes, every level and spill
+        (the map's entries)."""
+        rows = final.rows
+        r = self.torch.repeat_interleave(
+            self.torch.arange(rows.nr_rows, device=self.dev),
+            rows.rowptr.diff().long(), output_size=rows.n_entries)
+        return r, rows.idx.long(), (rows.nr_rows, rows.n_positions)
 
-    def tpu_levels(self, final):
-        """The levels of a device final with their TPU tables on the card
-        (a device's own level where they stayed, else a copy uploaded from
-        its host level): the per-instance path's, for comparisons."""
-        return [lvl.with_tables(self.dev)
-                for lvl in getattr(final, "levels", [final])]
-
-    def old_final(self, levels, vec, kernel=None):
-        """y as the classic devices finished before the row-sorted final:
-        each level's per-instance grid (``csrc/gstream_final.cu``, or
-        ``kernel``), sliced to nr_rows, its spills by ``index_add_``, the
-        levels' ys added."""
-        flat, y = vec.reshape(-1), None
-        for lvl in levels:
-            yl = lvl.grid(vec, kernel).view(-1)[:lvl.nr_rows]
-            if lvl.n_spills:
-                yl.index_add_(0, lvl.spill_row, flat[lvl.spill_pos])
+    def tpu_final(self, final, vec):
+        """y (Y for k-plane positions) as the TPU layout computes it, in
+        plain PyTorch: each level's grid over its TPU tables, uploaded for
+        the call, sliced to nr_rows, its spills by ``index_add_``, the
+        levels' ys added (f64 planes one at a time: the TPU layout's
+        k-plane final takes f32 only)."""
+        torch = self.torch
+        if vec.dim() == 2 and vec.dtype == torch.float64:
+            return torch.stack([self.tpu_final(final, vec[:, j].contiguous())
+                                for j in range(vec.shape[1])], 1)
+        nr, y = final.rows.nr_rows, None
+        for lvl in getattr(final, "levels", [final]):
+            t = lvl.tables(self.dev)
+            yl = (lvl.grid(vec).reshape(-1) if vec.dim() == 1
+                  else lvl.grid_multi(vec))[:nr]
+            yl.index_add_(0, t.spill_row, vec[t.spill_pos])
             y = yl if y is None else y + yl
         return y
 
-    def rows_build(self, final, levels, tag):
-        """``FinalRows.from_levels`` once more for ``final`` from its
-        ``levels`` (``tpu_levels``), timed (host clock, synchronised): the
-        set-up cost the upload pays."""
+    def rows_build(self, final, tag):
+        """``FinalRows.from_levels`` once more for ``final``, from its
+        levels' TPU tables uploaded one level at a time, as the upload
+        builds it; timed (host clock, synchronised): the set-up cost the
+        upload pays."""
+        torch = self.torch
         rows = final.rows
+        levels = list(getattr(final, "levels", [final]))
         self.sync()
         t0 = time.perf_counter()
-        again = self.fr.FinalRows.from_levels(levels, rows.nr_rows,
-                                              rows.n_positions, self.dev)
+        again = self.fr.FinalRows.from_levels(
+            (lvl.tables(self.dev) for lvl in levels), rows.nr_rows,
+            rows.n_positions, self.dev)
         self.sync()
         dt = time.perf_counter() - t0
-        if not (self.torch.equal(again.rowptr, rows.rowptr)
-                and self.torch.equal(again.idx, rows.idx)):
+        if not (torch.equal(again.rowptr, rows.rowptr)
+                and torch.equal(again.idx, rows.idx)):
             raise RuntimeError(f"{tag}: FinalRows built twice differ")
         lens = rows.rowptr.diff()
-        def tables(lvls):
-            return sum(_nbytes(*(getattr(lvl, k) for k in lvl.TABLES))
-                       for lvl in lvls)
+        tables = sum(_nbytes(*(v for v in vars(lvl.tables(self.dev)).values()
+                               if torch.is_tensor(v))) for lvl in levels)
+        kept = sum(_nbytes(b) for n, b in final.named_buffers()
+                   if not (n.startswith("rows.") or ".rows." in n))
+        mapb = _nbytes(rows.rowptr, rows.idx, rows.by_length, rows.long_rows)
         print(f"  FinalRows [{tag}]: {rows.nr_rows} rows, {rows.n_entries} "
               f"entries ({rows.n_entries / max(rows.nr_rows, 1):.3f} a row, "
               f"longest {int(lens.max()) if lens.numel() else 0}, "
               f"{int((lens == 0).sum())} empty), {rows.n_long} long rows, "
               f"from {len(levels)} levels and "
               f"{sum(lvl.n_spills for lvl in levels)} spills; built in "
-              f"{dt:.4f} s; the map "
-              f"{_nbytes(rows.rowptr, rows.idx, rows.long_rows)} B, the TPU "
-              f"tables {tables(levels)} B, of which the device keeps "
-              f"{tables(getattr(final, 'levels', [final]))} B", flush=True)
+              f"{dt:.4f} s (the tables' upload in); the map {mapb} B, the "
+              f"TPU tables {tables} B, of which the device keeps {kept} B",
+              flush=True)
         return dt
 
     def gather_sectors(self, rows, elt):
@@ -800,75 +787,39 @@ class Smoke:
     def final(self, final, vec, tag, measure=True):
         """The row-sorted final (every level of a multi final, and the
         spills) vs its plain version and vs the TPU layout's plain final
-        (each level's grid, its spills, the adds), and each level's
-        per-instance kernel vs its plain version, on the position vector
-        ``vec``.  Measured: the new kernel, the old per-instance path
-        (driven once, a comparison path, on levels with their TPU tables
-        on the card), the plain versions and cuSPARSE on the 0/1 matrix
-        with the spills (for the per-instance kernel on its grid's)."""
-        torch, sg, fr = self.torch, self.sg, self.fr
+        (each level's grid, its spills, the adds), on the position vector
+        ``vec``.  Measured: the kernel, its plain version and cuSPARSE on
+        the same 0/1 matrix with the spills."""
+        torch, fr = self.torch, self.fr
         rows = final.rows
-        levels = self.tpu_levels(final)
         yk, yr = final.apply(vec), final.apply(vec, fr.final_rows_reference)
-        yt = self.old_final(levels, vec, sg.final_gather_reference)
-        gk = [lvl.grid(vec) for lvl in levels]
-        gr = [lvl.grid(vec, sg.final_gather_reference) for lvl in levels]
+        yt = self.tpu_final(final, vec)
         self.sync()
         err = _agree(yk, yr)
         _agree(yk, yt)
-        old_err = max(_agree(a, b) for a, b in zip(gk, gr))
-        del gk
+        del yt
         if not measure:
             return
-        f64 = vec.dtype == torch.float64
-        name = "final_rows_f64" if f64 else "final_rows"
-        old = ("gstream_final_legacy_f64" if f64 else
-               "gstream_final_flat" if levels[0].v2 else
-               "gstream_final_legacy")
-        build_s = self.rows_build(final, levels, tag)
-        self.drive(f"{tag}, the per-instance final path (comparison)",
-                   lambda: self.old_final(levels, vec), {old})
+        name = "final_rows_f64" if vec.dtype == torch.float64 \
+            else "final_rows"
+        build_s = self.rows_build(final, tag)
         n_launch = int(rows.n_long < rows.nr_rows) + int(rows.n_long > 0)
         ms = self.call_ms(lambda: final.apply(vec))
         plain_ms = self.call_ms(
             lambda: final.apply(vec, fr.final_rows_reference), repeats=10)
-        old_ms = self.call_ms(lambda: self.old_final(levels, vec))
-        grid_ms = self.call_ms(lambda: [lvl.grid(vec) for lvl in levels])
-        grid_plain_ms = self.call_ms(
-            lambda: [lvl.grid(vec, sg.final_gather_reference)
-                     for lvl in levels], repeats=10)
-        r, c, shape = self._final_incidence(levels, rows.nr_rows,
-                                            rows.n_positions)
-        flat = vec.reshape(-1)
+        r, c, shape = self._final_incidence(final)
         lib_ms, lib_b2b = self.library_spmv(
             r, c, torch.ones(r.numel(), dtype=vec.dtype, device=self.dev),
-            shape, flat[:rows.n_positions], yr, back_to_back=True)
-        # the per-instance kernel's own function: the grids only, every
-        # out tile's rows, over the padded positions
-        r, c, (n_out, n_pos) = self._final_incidence(levels)
-        grid_sum = sum(torch.nn.functional.pad(
-            g.reshape(-1), (0, n_out - g.numel())) for g in gr)
-        grid_lib_ms = self.library_spmv(
-            r, c, torch.ones(r.numel(), dtype=vec.dtype, device=self.dev),
-            (n_out, n_pos), torch.nn.functional.pad(
-                flat, (0, max(0, n_pos - flat.numel())))[:n_pos], grid_sum)
-        del r, c, gr, grid_sum
+            shape, vec.reshape(-1)[:rows.n_positions], yr, back_to_back=True)
+        del r, c
         b2b = self.back_to_back(lambda: final.apply(vec))
-        old_b2b = self.back_to_back(lambda: self.old_final(levels, vec))
         elt = vec.element_size()
         nb = _nbytes(rows.rowptr, rows.idx, rows.long_rows) + \
             (rows.n_entries + rows.nr_rows) * elt
         self.record(name, tag, err, ms, plain_ms, nb, rows.n_entries, lib_ms)
-        nb_old = (n_pos + n_out) * elt + sum(
-            _nbytes(lvl.step_meta, lvl.tile_bases, lvl.inst_start,
-                    lvl.cells, lvl.route) for lvl in levels)
-        self.record(old, tag, old_err, grid_ms, grid_plain_ms, nb_old,
-                    sum(lvl.cells.numel() for lvl in levels), grid_lib_ms)
         touched, requested = self.gather_sectors(rows, elt)
         print(f"  final [{tag}]: row-sorted {ms:.4f} ms a call, {b2b:.4f} "
-              f"back to back ({n_launch} launches) | per-instance path (the "
-              f"grids, the spills' index_add_, the adds) {old_ms:.4f} ms, "
-              f"{old_b2b:.4f} back to back, {old_ms / ms:.2f}x | cuSPARSE "
+              f"back to back ({n_launch} launches) | cuSPARSE "
               f"{lib_ms:.4f} ms, {lib_b2b:.4f} back to back | FinalRows "
               f"build {build_s:.4f} s | vec "
               f"sectors: {touched} touched ({touched * 32} B), {requested} "
@@ -876,41 +827,62 @@ class Smoke:
               f"{self.hbm:.0f} GB/s {requested * 32 / self.hbm / 1e6:.4f} "
               f"ms)", flush=True)
 
-    def final_multi(self, lvl, vec, tag, measure=True):
-        """The k-plane final kernel of one final level vs its plain version
-        on the k-plane position vector ``vec`` (n_positions, k)."""
-        torch = self.torch
-        ref = self.sp.final_gather_multi_reference
-        gk, gr = lvl.grid_multi(vec), lvl.grid_multi(vec, ref)
+    def final_multi(self, final, vec, tag, measure=True):
+        """The row-sorted final on k planes (``apply_multi``) vs its plain
+        version and vs the TPU layout's plain k-plane final, on the k-plane
+        position vector ``vec`` (n_positions, k); measured (time, bound,
+        cuSPARSE's SpMM on the same 0/1 matrix) when ``measure``."""
+        torch, fr = self.torch, self.fr
+        ref = fr.final_rows_multi_reference
+        Yk, Yr = final.apply_multi(vec), final.apply_multi(vec, ref)
+        Yt = self.tpu_final(final, vec)
         self.sync()
-        err = _agree(gk, gr)
+        err = _agree(Yk, Yr)
+        _agree(Yk, Yt)
+        del Yt
         if not measure:
             return
-        name = ("gstream_final_multi_flat" if lvl.v2
-                else "gstream_final_multi_legacy")
-        ms = self.call_ms(lambda: lvl.grid_multi(vec))
-        plain_ms = self.call_ms(lambda: lvl.grid_multi(vec, ref), repeats=10)
-        rows, cols, (n_out, n_pos) = self._final_incidence([lvl])
-        k = vec.shape[1]
-        X = torch.nn.functional.pad(
-            vec, (0, 0, 0, max(0, n_pos - vec.shape[0])))[:n_pos]
-        lib_ms = self.library_spmv(
-            rows, cols, torch.ones(rows.numel(), device=self.dev),
-            (n_out, n_pos), X.contiguous(), gr)
-        nb = (n_pos + n_out) * k * 4 + _nbytes(
-            lvl.step_meta, lvl.tile_bases, lvl.inst_start, lvl.cells,
-            lvl.route)
-        self.record(name, tag, err, ms, plain_ms, nb, lvl.cells.numel() * k,
+        rows, k = final.rows, vec.shape[1]
+        name = "final_rows_multi_f64" if vec.dtype == torch.float64 \
+            else "final_rows_multi"
+        max_len = fr.short_max_multi(k // self.build.vector_width(k, vec,
+                                                                   Yk))
+        long_rows = rows.rows_over(max_len)
+        n_long = long_rows.numel()
+        n_launch = int(n_long < rows.nr_rows) + int(n_long > 0)
+        ms = self.call_ms(lambda: final.apply_multi(vec))
+        plain_ms = self.call_ms(lambda: final.apply_multi(vec, ref),
+                                repeats=10)
+        r, c, shape = self._final_incidence(final)
+        lib_ms, lib_b2b = self.library_spmv(
+            r, c, torch.ones(r.numel(), dtype=vec.dtype, device=self.dev),
+            shape, vec[:rows.n_positions], Yr, back_to_back=True)
+        del r, c
+        b2b = self.back_to_back(lambda: final.apply_multi(vec))
+        nb = _nbytes(rows.rowptr, rows.idx, long_rows) + \
+            (rows.n_entries + rows.nr_rows) * k * vec.element_size()
+        self.record(name, tag, err, ms, plain_ms, nb, rows.n_entries * k,
                     lib_ms)
+        print(f"  {name} [{tag}]: k={k}, plane vectors of "
+              f"{self.build.vector_width(k, vec, Yk)} values, {ms:.4f} ms a "
+              f"call, {b2b:.4f} back to back ({n_launch} launches, {n_long} "
+              f"rows past {max_len} entries) | plain "
+              f"{plain_ms:.4f} ms | cuSPARSE {lib_ms:.4f} ms, {lib_b2b:.4f} "
+              f"back to back", flush=True)
 
     def gstream_multi(self, d, X, tag, measure=True):
         """The k-plane kernels of one classic device's SpMM vs their plain
-        versions (the per-plane finishes run the SpMV kernels, which
-        ``gstream`` checks)."""
+        versions: the forward, each F level's k planes (the same kernel),
+        and the k-plane final."""
         cr = self.forward_multi(d.stream, d.prepare_x_multi(X), tag, measure)
-        if isinstance(d.final, self.sg.FinalDevice) and not len(d.flevels) \
-                and cr.dtype == self.torch.float32:
-            self.final_multi(d.final, cr, tag, measure)
+        vec = d.positions_multi(cr, self.sp.gstream_chunk_sums_multi_reference)
+        if len(d.flevels):
+            vk = d.positions_multi(cr)
+            self.sync()
+            _agree(vk, vec)
+            del vk
+        if d.final is not None:
+            self.final_multi(d.final, vec, tag, measure)
 
     def gstream(self, d, x, tag, measure=True):
         """Every kernel of one classic device vs its plain version."""
@@ -1026,6 +998,7 @@ class Smoke:
         ms = self.call_ms(lambda: sm @ Xt, repeats=20)
         per_col = self.call_ms(lambda: [sm @ c for c in cols], repeats=10)
         lib_ms = self.call_ms(lambda: a @ Xt, repeats=20)
+        self.calls[tag] = (ms, per_col, lib_ms)
         work = m.nr_nzeros * k / 1e6
         print(f"  {tag}: SparseMatrix @ X (k={k}) {ms:.4f} ms a call "
               f"({work / ms:.2f} Gnnz/s) | {k} x SparseMatrix @ x "
@@ -1420,6 +1393,63 @@ def final_rows_bins(s, small):
           f"back: {', '.join(times)} (SHORT_MAX {fr.SHORT_MAX})", flush=True)
 
 
+def final_rows_multi_bins(s, small):
+    """The k-plane form's threshold ``short_max_multi`` on the card: on
+    uniform rows of 4 to 4096 entries at random positions (from a seed), at
+    k = 8 (4M entries over 8M positions) and k = 72 (1M over 1M), its short
+    launch over every row (a group of k / 4 threads a row) against its long
+    launch over every row (a warp per row and plane vector), each held to
+    the plain version."""
+    import ctypes
+
+    from sparsetpu_torch.kernels._build import check, library
+    torch, fr = s.torch, s.fr
+    lib = library().lib
+    stream = ctypes.c_void_p(torch.cuda.current_stream(s.dev).cuda_stream)
+    g = torch.Generator(device=s.dev).manual_seed(1)
+    for k, n_pos, n_ent in ((8, 1 << 23, 1 << 22), (72, 1 << 20, 1 << 20)):
+        if small:
+            n_pos, n_ent = n_pos >> 6, n_ent >> 6
+        v = torch.randn(n_pos, k, generator=g, device=s.dev)
+        times = []
+        for length in (4, 8, 16, 32, 64, 512, 4096):
+            nr = n_ent // length
+            rowptr = torch.arange(nr + 1, dtype=torch.int32,
+                                  device=s.dev) * length
+            idx = torch.randint(0, n_pos, (nr * length,), generator=g,
+                                dtype=torch.int32, device=s.dev)
+            rows = fr.FinalRows(rowptr, idx, n_pos)
+            every = torch.arange(nr, dtype=torch.int32, device=s.dev)
+            Yr = fr.final_rows_multi_reference(v, rows)
+            Y = torch.empty_like(Yr)
+
+            def launch(lst):
+                # rows null: k / 4 threads a row over every row (max_len
+                # -1: none left to the long launch); a row list: a warp
+                # per (row, plane vector) over it
+                check(lib, lib.final_rows_multi_launch(
+                    0, ctypes.c_void_p(rowptr.data_ptr()),
+                    ctypes.c_void_p(idx.data_ptr()),
+                    ctypes.c_void_p(v.data_ptr()),
+                    ctypes.c_void_p(lst.data_ptr() if lst is not None
+                                    else 0),
+                    nr, -1, k, 4, ctypes.c_void_p(Y.data_ptr()), stream),
+                    "final_rows_multi launch")
+                return Y
+
+            ms = []
+            for lst in (None, every):
+                _agree(launch(lst), Yr)
+                ms.append(s.back_to_back(lambda: launch(lst)))
+            times.append(f"{length}: {ms[0]:.4f} / {ms[1]:.4f}")
+            del rows, idx, Yr, Y
+        print(f"  final_rows_multi: k={k}, uniform rows, {n_ent} entries "
+              f"over {n_pos} positions, length: a group a row / a warp a "
+              f"plane vector, ms back to back: {', '.join(times)} "
+              f"(short_max_multi {fr.short_max_multi(k // 4)})", flush=True)
+        del v
+
+
 def describe_bsr(d) -> str:
     fin = d.plan
     out = (f"BSR {d.nr_rows}x{d.nr_cols}, {d.n_blocks} blocks (padded), "
@@ -1695,7 +1725,7 @@ def spgemm_main(s, small, t0):
           f"{plan.flops // 2} multiplications, nnz(C) = {plan.nnz_c}; "
           f"numeric phase on: {s.describe(d)}", flush=True)
     if getattr(d, "final", None) is not None:
-        s.rows_build(d.final, s.tpu_levels(d.final), tag + ", event matrix")
+        s.rows_build(d.final, tag + ", event matrix")
     bv = torch.as_tensor(m.values, device=s.dev)
     t1 = time.perf_counter()
     c = s.drive(tag, lambda: plan.to_csr(plan(bv)), s.kernels_of(d))
@@ -2571,6 +2601,24 @@ def run(device, hbm: float, small: bool = False):
     print(f"phase headline classic SpMM: {time.perf_counter() - t0:.1f} s",
           flush=True)
 
+    # ---- the crossing: past the fused SpMM's limit, the classic route
+    # against k fused SpMVs (k sm @ x) and cuSPARSE, at k = 72, 96, 128 on
+    # an H100 (the first k the fused SpMM rejects, then 96 and 128)
+    t0 = time.perf_counter()
+    crossing = [k] + [kc for kc in (96, 128) if kc > k]
+    for kc in crossing[1:]:
+        tag = f"headline SpMM k={kc} (classic device)"
+        Xt = spmm_path(s, tag, m, lambda X: sm @ X, [cd], kc)
+        s.whole_call_multi(sm, m, Xt, tag)
+    del Xt
+    print("  crossing (ms a call): " + "; ".join(
+        f"k={kc}: sm @ X {ms:.4f}, {kc} x sm @ x {per_col:.4f} "
+        f"({per_col / ms:.2f}x), cuSPARSE {lib:.4f}"
+        for kc in crossing
+        for ms, per_col, lib in [s.calls[f"headline SpMM k={kc} (classic "
+                                         f"device)"]]), flush=True)
+    print(f"phase crossing: {time.perf_counter() - t0:.1f} s", flush=True)
+
     # ---- the headline's shuffled pack: the k-plane legacy final
     t0 = time.perf_counter()
     shuf = st.GStreamDevice(h.pack_gstream(m, shuffle_lanes=True), s.dev)
@@ -2608,11 +2656,12 @@ def run(device, hbm: float, small: bool = False):
     s.gstream(sm.device_module, xt, "wide x (roadNet-CA)")
     if s.dev.type == "cuda":
         final_rows_bins(s, small)
+        final_rows_multi_bins(s, small)
     tag = "wide x SpMM k=2 (roadNet-CA)"
     Xt = spmm_path(s, tag, m, lambda X: sm @ X, [sm.device_module], 2)
     s.whole_call_multi(sm, m, Xt, tag)
     s.profile(tag, lambda: sm @ Xt)
-    s.gstream_multi(sm.device_module, Xt, tag, measure=False)
+    s.gstream_multi(sm.device_module, Xt, tag)
     print(f"phase wide x: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- per-tile base: the same matrix with GL pinned
@@ -2678,7 +2727,7 @@ def run(device, hbm: float, small: bool = False):
     s.sync()
     print(f"  fused_spmm [web graph, light rows]: kernel vs plain max abs "
           f"{_agree(yk, yr):.3e}", flush=True)
-    s.gstream_multi(sm.heavy_device, Xt, tag + ", heavy rows", measure=False)
+    s.gstream_multi(sm.heavy_device, Xt, tag + ", heavy rows")
     print(f"phase web graph: {time.perf_counter() - t0:.1f} s", flush=True)
     del m, sm, light, Xt
 
@@ -2760,9 +2809,7 @@ def run(device, hbm: float, small: bool = False):
     if missing:
         raise RuntimeError(f"kernels never measured on a main path: "
                            f"{missing}")
-    return [dict(s.records[k], launches=s.launches[k],
-                 launches_from=COMPARISON.get(k, "main paths"))
-            for k in KERNELS]
+    return [dict(s.records[k], launches=s.launches[k]) for k in KERNELS]
 
 
 def main() -> int:

@@ -4,16 +4,26 @@ of the port can be compared on one card, in turns:
     python3 classic_calls.py [--label NAME]
     python3 classic_calls.py --device cpu --small
 
-Builds ``chip_smoke.py``'s matrices from their seeds (the roadNet-CA and
-webbase-1M stand-ins, FEM-3D Poisson 72^3, the SpGEMM cut of roadNet-CA to
-2M nnz), checks each y against the gold, and times, as ms a call (the
-median of 20 calls after 5 warm-up calls, CUDA events:
-``bench/harness.py:call_ms``):
+Builds ``chip_smoke.py``'s matrices from their seeds (the headline, the
+roadNet-CA and webbase-1M stand-ins, FEM-3D Poisson 72^3, the SpGEMM cut of
+roadNet-CA to 2M nnz), checks each y (each Y's first column) against the
+gold, and times, as ms a call (the median of 20 calls after 5 warm-up
+calls, CUDA events: ``bench/harness.py:call_ms``):
 
+  headline_k72      ``sm @ X`` at the headline, k = 72: past the fused
+                    SpMM's limit on an H100, the classic device's k-plane
+                    forward and final;
+  headline_k72_loop 72 ``sm @ x`` calls (72 fused SpMVs) on its columns;
+  headline_k96, headline_k128 and their ``_loop``: the same at k = 96, 128
+                    (the crossing of the classic route and k fused SpMVs);
+  shuffled_k8       ``spmm_gstream`` on the headline's
+                    ``pack_gstream(shuffle_lanes=True)`` (a legacy final),
+                    k = 8;
   wide_x            ``sm @ x`` at the roadNet-CA stand-in (classic device);
-  wide_x_k2         ``sm @ X`` there, k = 2 (a final a plane);
+  wide_x_k2         ``sm @ X`` there, k = 2;
   web_graph         ``sm @ x`` at the webbase-1M stand-in (the hybrid: the
                     heavy rows' legacy final);
+  web_graph_k4      ``sm @ X`` there, k = 4 (the heavy rows' F levels);
   wide_x_f64        ``sm @ x`` at the roadNet-CA stand-in in f64;
   wide_x_f64_k8     ``sm @ X`` there, k = 8;
   bsr_spmv          ``BSRDevice.spmv`` at FEM-3D Poisson 72^3;
@@ -67,17 +77,33 @@ def run(device: str, small: bool) -> dict:
         ms[tag] = call_ms(lambda: sm @ xt, dev, repeats=20)
         return sm
 
-    def spmm(tag, sm, m, k, dtype=np.float32):
+    def spmm(tag, sm, m, k, dtype=np.float32, fn=None):
+        """``sm @ X`` (or ``fn(X)``) at k columns; returns X."""
+        fn = fn or (lambda X: sm @ X)
         X = cs._X(m.nr_cols, k, seed=k)
         Xt = torch.as_tensor(X, dtype=getattr(torch, np.dtype(dtype).name),
                              device=dev)
         G = h.spmv_gold(m, X[:, 0])
-        Y = (sm @ Xt).cpu().numpy()
+        Y = fn(Xt).cpu().numpy()
         tol = h.default_tolerance(dtype, m.nr_nzeros / m.nr_rows)
         if h.verification(G, Y[:, 0], *tol):
             raise RuntimeError(f"{tag}: Y's first column disagrees with "
                                "the gold")
-        ms[tag] = call_ms(lambda: sm @ Xt, dev, repeats=20)
+        ms[tag] = call_ms(lambda: fn(Xt), dev, repeats=20)
+        return Xt
+
+    m = h.random_csr(20_000 if small else 200_000, 100_000, density=0.0005,
+                     seed=1, dtype=np.float32)
+    sm = st.SparseMatrix(m, device=dev)
+    for k in (72, 96, 128):
+        Xt = spmm(f"headline_k{k}", sm, m, k)
+        cols = [Xt[:, j].contiguous() for j in range(k)]
+        ms[f"headline_k{k}_loop"] = call_ms(lambda: [sm @ c for c in cols],
+                                            dev, repeats=10)
+    del sm, Xt, cols
+    shuf = st.GStreamDevice(h.pack_gstream(m, shuffle_lanes=True), dev)
+    spmm("shuffled_k8", None, m, 8, fn=lambda X: st.spmm_gstream(shuf, X))
+    del shuf, m
 
     road = 20_000 if small else 5_533_214
     m = cs.road_net_ca(h, nnz=road)
@@ -86,8 +112,9 @@ def run(device: str, small: bool) -> dict:
     del sm, m
     m = (cs.webbase_1m(h, nr=100_000, nnz=310_000) if small
          else cs.webbase_1m(h))
-    spmv("web_graph", m)
-    del m
+    sm = spmv("web_graph", m)
+    spmm("web_graph_k4", sm, m, 4)
+    del sm, m
     m = cs.road_net_ca(h, nnz=road, dtype=np.float64)
     sm = spmv("wide_x_f64", m, np.float64)
     spmm("wide_x_f64_k8", sm, m, 8, np.float64)

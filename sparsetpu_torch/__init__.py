@@ -21,11 +21,19 @@ Layer map:
   bench/      the main.cpp measurement protocol, CUDA-event timing, the
               stage ladder, ``python -m sparsetpu_torch.bench``
   utils/      configuration, device selection, card facts
+
+The top level names what ``sparsetpu`` names (``formats``, ``kernels``,
+``api``, ``utils``, ``pack_matrix``, ``COOMatrix``, ...) and more, with two
+differences: ``pack`` is the pack function (``pack_matrix``), not the
+subpackage, which stays importable as ``sparsetpu_torch.pack``; and there
+is no ``DF64``: f64 runs in native FP64 on the card, so a float64 tensor
+takes the place of the JAX package's (hi, lo) pair.
 """
 
 __version__ = "0.1.0"
 
-from ._host import (BSRMatrix, CSRMatrix, SpmvConfig, bsr_to_csr,
+from . import formats, kernels, api, utils
+from ._host import (BSRMatrix, COOMatrix, CSRMatrix, SpmvConfig, bsr_to_csr,
                     csr_to_bsr, default_tolerance, read_matrix, spmv_gold,
                     verification)
 from .api.api import (SparseMatrix, create_csr_hw_matrix,
@@ -33,28 +41,28 @@ from .api.api import (SparseMatrix, create_csr_hw_matrix,
                       delete_csr_hw_x_vector, pack, spmv, spmv_hw, unpack)
 from .api.autotune import autotune_candidates, autotune_pack
 from .kernels.bsr import BSRDevice, bsr_partials, bsr_spmv
-from .kernels.final_rows import FinalRows, final_rows
+from .kernels.final_rows import FinalRows, final_rows, final_rows_multi
 from .kernels.f64emu import DF64GStreamDevice, spmm_df64
-from .kernels.spmm import (final_gather_multi, gstream_chunk_sums_multi,
+from .kernels.spmm import (gstream_chunk_sums_multi,
                            gstream_chunk_sums_multi_f64, spmm_gstream)
 from .kernels.spmv_fused import (DF64FusedDevice, FusedDevice, fused_spmm,
                                  fused_spmv, fused_spmv_f64)
-from .kernels.spmv_gstream import (GStreamDevice, final_gather,
-                                   final_gather_f64, gstream_chunk_sums,
+from .kernels.spmv_gstream import (GStreamDevice, gstream_chunk_sums,
                                    gstream_chunk_sums_f64)
 from .kernels.spgemm import SpGEMMPlan, spgemm
 from .solvers import (CGResult, bicgstab, cg, cg_df64, cg_step, gmres,
                       jacobi_iteration, jacobi_preconditioner, pcg, pcg_df64,
                       power_iteration)
 
+pack_matrix = pack
+
 __all__ = [
-    "SparseMatrix", "pack", "spmv", "unpack", "autotune_candidates",
-    "autotune_pack", "FusedDevice", "fused_spmm",
-    "fused_spmv", "GStreamDevice", "final_gather", "final_gather_multi",
+    "SparseMatrix", "pack", "pack_matrix", "spmv", "unpack",
+    "autotune_candidates", "autotune_pack", "FusedDevice", "fused_spmm",
+    "fused_spmv", "GStreamDevice",
     "gstream_chunk_sums", "gstream_chunk_sums_multi", "spmm_gstream",
     "DF64FusedDevice", "DF64GStreamDevice", "spmm_df64", "fused_spmv_f64",
-    "gstream_chunk_sums_f64", "final_gather_f64", "FinalRows",
-    "final_rows",
+    "gstream_chunk_sums_f64", "FinalRows", "final_rows", "final_rows_multi",
     "gstream_chunk_sums_multi_f64",
     "BSRDevice", "bsr_partials", "bsr_spmv", "SpGEMMPlan", "spgemm",
     "CGResult", "bicgstab", "cg", "cg_df64", "cg_step", "gmres",
@@ -62,6 +70,7 @@ __all__ = [
     "power_iteration",
     "create_csr_hw_matrix", "create_csr_hw_x_vector", "spmv_hw",
     "delete_csr_hw_matrix", "delete_csr_hw_x_vector",
-    "BSRMatrix", "CSRMatrix", "SpmvConfig", "bsr_to_csr", "csr_to_bsr",
-    "default_tolerance", "read_matrix", "spmv_gold", "verification",
+    "BSRMatrix", "COOMatrix", "CSRMatrix", "SpmvConfig", "bsr_to_csr",
+    "csr_to_bsr", "default_tolerance", "read_matrix", "spmv_gold",
+    "verification", "formats", "kernels", "api", "utils",
 ]

@@ -1,14 +1,12 @@
 """Build the port's CUDA sources into one shared library and load it.
 
-The fused SpMV, the forward, the k-plane forward, the row-sorted final
-(``final_rows.cu``, the classic devices' final level since it replaced
-the per-instance final of ``gstream_final.cu`` on their path) and the
-per-instance final template their kernels on the real type: one source
-holds a kernel's f32 and f64 (native FP64) forms, each behind its own
-entry point.  The BSR partials
-(``bsr_spmv.cu``) are f32 only, as the TPU's BSR device; the stage ladder
-(``micro_ladder.cu``, ``bench/micro.py``), the fused kernel's stage
-split (``fused_stages.cu``, ``bench/fused_stages.py``), the
+The fused SpMV, the forward, the k-plane forward and the row-sorted final
+(``final_rows.cu``, the classic devices' final level, one plane or k)
+template their kernels on the real type: one source holds a kernel's f32
+and f64 (native FP64) forms, each behind its own entry point.  The BSR
+partials (``bsr_spmv.cu``) are f32 only, as the TPU's BSR device; the
+stage ladder (``micro_ladder.cu``, ``bench/micro.py``), the fused
+kernel's stage split (``fused_stages.cu``, ``bench/fused_stages.py``), the
 fused-redesign prototypes (``fused_proto.cu``, ``bench/fused_proto.py``)
 and the select chains (``select_chains.cu``, ``bench/select_chains.py``)
 are measurement kernels.
@@ -18,9 +16,9 @@ are measurement kernels.
 per source, all at once, then one link.  The library
 exposes plain C entry points, bound with ctypes (every pointer and the
 stream as ``c_void_p``), so nothing includes PyTorch's headers and a build
-takes seconds.  The file name carries a hash of the sources and flags: an
-edited ``.cu`` builds a new library.  A failed build raises with nvcc's
-stderr.
+takes seconds.  The file name carries a hash of the sources, the headers
+beside them and the flags: an edited ``.cu`` or ``.cuh`` builds a new
+library.  A failed build raises with nvcc's stderr.
 """
 
 from __future__ import annotations
@@ -101,8 +99,9 @@ def library() -> _Library:
     if _LIBRARY.lib is not None:
         return _LIBRARY
     sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + headers:
         with open(src, "rb") as f:
             h.update(f.read())
     path = os.path.join(BUILD_DIR,
@@ -121,29 +120,25 @@ def library() -> _Library:
     lib.gstream_spmv_launch.restype = i
     lib.gstream_spmv_launch.argtypes = [p, i] + [p] * 5 + [ll] + [i] * 4 \
         + [p]
-    lib.gstream_final_launch.restype = i
-    lib.gstream_final_launch.argtypes = [i] + [p] * 7 + [ll] + [i] * 4 + [p]
     lib.fused_spmm_launch.restype = i
     lib.fused_spmm_launch.argtypes = [p] * 12 + [i] * 13 + [p]
     lib.gstream_spmm_launch.restype = i
-    lib.gstream_spmm_launch.argtypes = [p, i] + [p] * 5 + [ll] + [i] * 5 \
+    lib.gstream_spmm_launch.argtypes = [p, i] + [p] * 5 + [ll] + [i] * 6 \
         + [p]
-    lib.gstream_final_multi_launch.restype = i
-    lib.gstream_final_multi_launch.argtypes = [i] + [p] * 7 + [ll] \
-        + [i] * 5 + [p]
     # f64 (native FP64) entry points
     lib.fused_spmv_f64_launch.restype = i
     lib.fused_spmv_f64_launch.argtypes = [p] * 13 + [i] * 11 + [p]
     lib.gstream_spmv_f64_launch.restype = i
     lib.gstream_spmv_f64_launch.argtypes = [p] * 5 + [ll] + [i] * 3 + [p]
-    lib.gstream_final_f64_launch.restype = i
-    lib.gstream_final_f64_launch.argtypes = [p] * 6 + [ll] + [i] * 3 + [p]
     lib.gstream_spmm_f64_launch.restype = i
-    lib.gstream_spmm_f64_launch.argtypes = [p] * 5 + [ll] + [i] * 4 + [p]
+    lib.gstream_spmm_f64_launch.argtypes = [p] * 5 + [ll] + [i] * 5 + [p]
     lib.final_rows_launch.restype = i
     lib.final_rows_launch.argtypes = [p] * 4 + [ll, i, p, p]
     lib.final_rows_f64_launch.restype = i
     lib.final_rows_f64_launch.argtypes = [p] * 4 + [ll, i, p, p]
+    lib.final_rows_multi_launch.restype = i
+    lib.final_rows_multi_launch.argtypes = [i] + [p] * 4 + [ll, i, i, i, p,
+                                                             p]
     lib.bsr_spmv_launch.restype = i
     lib.bsr_spmv_launch.argtypes = [p] * 4 + [ll, p]
     lib.micro_ladder_launch.restype = i
@@ -163,6 +158,18 @@ def library() -> _Library:
     lib.sparsetpu_error_string.argtypes = [i]
     _LIBRARY.lib, _LIBRARY.path = lib, path
     return _LIBRARY
+
+
+def vector_width(k: int, *tensors) -> int:
+    """The plane vector's width W of a k-plane kernel: the most values, 4,
+    2 or 1 and at most 16 B, that divide k and whose size every tensor's
+    address is a multiple of (``csrc/vec.cuh``)."""
+    elt = tensors[0].element_size()
+    for w in (4, 2):
+        if w * elt <= 16 and k % w == 0 and all(
+                t.data_ptr() % (w * elt) == 0 for t in tensors):
+            return w
+    return 1
 
 
 def check(lib, rc: int, what: str) -> None:

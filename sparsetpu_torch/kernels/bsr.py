@@ -139,7 +139,7 @@ class BSRDevice(nn.Module):
         child_row[child_row >= self.rows_pad] = self.rows_pad
         self.plan = _FinalLevel.build(child_row, self.rows_pad)
         self.final = (final_device(self.plan, self.rows_pad, child_row.size,
-                                   dev, tables=False)
+                                   dev)
                       if self.plan is not None else None)
         self.register_buffer("brow", torch.from_numpy(brow).to(dev)
                              if self.plan is None else None)

@@ -19,14 +19,13 @@ place of ``DF64``.
                          segment-sum route when none builds;
   ``spmm_df64``          Y = A @ X on either f64 device: one fused f64 SpMV
                          a column on ``DF64FusedDevice``, the k-plane f64
-                         forward once then the f64 finish a plane here.
+                         forward once then the k-plane f64 final here.
 
 The kernels are the f64 forms of ``csrc/fused_spmv.cu``,
 ``gstream_spmv.cu``, ``final_rows.cu`` and ``gstream_spmm.cu``, behind
-``fused_spmv_f64``, ``gstream_chunk_sums_f64``, ``final_rows`` (on f64
-positions) and ``gstream_chunk_sums_multi_f64``; the TPU layout's f64
-final ``final_gather_f64`` (``gstream_final.cu``) stays behind
-``FinalDevice.grid``.
+``fused_spmv_f64``, ``gstream_chunk_sums_f64``, ``final_rows`` and
+``final_rows_multi`` (on f64 positions) and
+``gstream_chunk_sums_multi_f64``.
 """
 
 from __future__ import annotations
@@ -122,7 +121,8 @@ def spmm_df64(device, X) -> torch.Tensor:
     """Y = A @ X (nr_rows, k) float64 on an f64 device, routed as the JAX
     package's ``spmm_df64`` (``f64emu.py:389-436``): one fused f64 SpMV a
     column on ``DF64FusedDevice``; on ``DF64GStreamDevice`` the k-plane f64
-    forward once for all k, then the f64 finish a plane."""
+    forward once for all k, then the k-plane f64 final (the JAX package
+    finishes a plane at a time)."""
     if isinstance(device, DF64FusedDevice):
         return device.spmm(X)
     if isinstance(device, DF64GStreamDevice):

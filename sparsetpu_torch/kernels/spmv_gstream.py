@@ -15,26 +15,26 @@ arrays the JAX ``GStreamDevice`` uploads) and its finish plan
             at upload from the TPU tables (``csrc/final_rows.cu``);
 
 or, when no final could be built, a segment-sum of the position vector
-(``spmv_coo.spmv_chunked``), the algorithm's own route.  The TPU layout's
-per-instance final, ``final_gather`` (``csrc/gstream_final.cu``; legacy or
-flat scheme), stays behind ``FinalDevice.grid``: y's grid, whose output
-cell (r // 128, r % 128) IS y[r].  Each wrapper runs its plain PyTorch
-version (``gstream_chunk_sums_reference``, ``final_gather_reference``)
-for tensors on the CPU, and launches its kernel (or raises) for tensors on
-a CUDA device.
+(``spmv_coo.spmv_chunked``), the algorithm's own route.  Its k-plane
+counterparts (``positions_multi``, ``apply_multi``) serve
+``spmm.spmm_gstream``.  The TPU layout's per-instance final survives only
+as its plain version, ``final_gather_reference`` (``FinalDevice.grid``),
+the tests' yardstick; no device keeps its tables.  Each wrapper runs its
+plain PyTorch version (``gstream_chunk_sums_reference``) for tensors on
+the CPU, and launches its kernel (or raises) for tensors on a CUDA device.
 
 The f64 device (``f64emu.DF64GStreamDevice``) is this device with float64
 values, positions and y: the wrappers hand float64 inputs to their native
 FP64 forms, ``gstream_chunk_sums_f64`` (window scheme) and ``final_rows``
-(its f64 entry point; the per-instance ``final_gather_f64``, legacy
-scheme, behind ``grid``), whose plain versions are the same
-``..._reference`` functions, which run in the inputs' real type.
+(its f64 entry point), whose plain versions are the same ``..._reference``
+functions, which run in the inputs' real type.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import types
 from typing import Optional
 
 import numpy as np
@@ -46,7 +46,7 @@ from ..pack.final_levels import (_FinalLevel, _FinalLevelMulti,
 from ..pack.gather_stream import CHUNK, LANES, STRIPE, GStreamMatrix
 from ..utils.device import require_device
 from ._build import check, library
-from .final_rows import FinalRows, final_rows
+from .final_rows import FinalRows, final_rows, final_rows_multi
 from .spmv_coo import spmv_chunked
 
 
@@ -291,12 +291,13 @@ def _check_forward_pack(p: GStreamMatrix) -> None:
 
 
 # ---------------------------------------------------------------------------
-# final levels (TPU kernels _final_kernel / _final_kernel_v2)
+# final levels: the TPU layout's plain final (TPU kernels _final_kernel /
+# _final_kernel_v2, a yardstick and the map's decode), and the devices'
 # ---------------------------------------------------------------------------
 
 def _check_final(step_meta, tile_bases, inst_start, x2, cells, route, *,
                  tps, G, nw, GS, nt_pad, v2, multi=False) -> int:
-    """Checks shared by the final kernels and their plain versions; returns
+    """Checks of the TPU layout's plain final and its k-plane form; returns
     the instance count.  ``multi``: x2 is the k position planes, row-major
     (x_pad_rows*128, k).  x2 is f32, or f64 for the legacy one-plane final
     (the f64 device's)."""
@@ -361,11 +362,11 @@ def final_gather_index(step_meta, tile_bases, cells, route, *, tps: int,
 def final_gather_reference(step_meta, tile_bases, inst_start, x2, cells,
                            route, *, tps: int, G: int, nw: int, GS: int,
                            nt_pad: int, v2: bool) -> torch.Tensor:
-    """Plain PyTorch version of the final kernel, over all instances at
-    once: decode, gather, sum over the 8 sublanes, then ``index_add_`` of
-    each instance into its out block (in instance order, so the first
-    instance's sum is added to 0).  Returns y's grid, (nt_pad, 128), in
-    x2's real type."""
+    """The TPU layout's per-instance final (TPU kernels #4, #5, #12) in
+    plain PyTorch, over all instances at once: decode, gather, sum over the
+    8 sublanes, then ``index_add_`` of each instance into its out block (in
+    instance order, so the first instance's sum is added to 0).  Returns
+    y's grid, (nt_pad, 128), in x2's real type."""
     n_steps = _check_final(step_meta, tile_bases, inst_start, x2, cells,
                            route, tps=tps, G=G, nw=nw, GS=GS, nt_pad=nt_pad,
                            v2=v2)
@@ -378,105 +379,21 @@ def final_gather_reference(step_meta, tile_bases, inst_start, x2, cells,
     return out.view(nt_pad, LANES)
 
 
-def final_gather(step_meta, tile_bases, inst_start, x2, cells, route, *,
-                 tps: int, G: int, nw: int, GS: int, nt_pad: int,
-                 v2: bool) -> torch.Tensor:
-    """The final kernel: y's grid (nt_pad, 128) f32.
-
-    On CUDA tensors it launches ``csrc/gstream_final.cu`` on the current
-    stream (or raises); on CPU tensors it runs ``final_gather_reference``.
-    ``final_gather.launches`` counts launches by scheme: ``"legacy"`` and
-    ``"flat"``.  f64 positions go to ``final_gather_f64``."""
-    if x2.dtype == torch.float64:
-        return final_gather_f64(step_meta, tile_bases, inst_start, x2, cells,
-                                route, tps=tps, G=G, nw=nw, GS=GS,
-                                nt_pad=nt_pad, v2=v2)
-    if x2.device.type == "cpu":
-        return final_gather_reference(step_meta, tile_bases, inst_start, x2,
-                                      cells, route, tps=tps, G=G, nw=nw,
-                                      GS=GS, nt_pad=nt_pad, v2=v2)
-    if x2.device.type != "cuda":
-        raise ValueError(f"final_gather: unsupported device {x2.device}")
-    _check_final(step_meta, tile_bases, inst_start, x2, cells, route,
-                 tps=tps, G=G, nw=nw, GS=GS, nt_pad=nt_pad, v2=v2)
-    lib = library().lib
-    with torch.cuda.device(x2.device):
-        out = torch.empty(nt_pad, LANES, device=x2.device)
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = lib.gstream_final_launch(
-            int(v2), ctypes.c_void_p(step_meta.data_ptr()),
-            ctypes.c_void_p(tile_bases.data_ptr() if v2 else 0),
-            ctypes.c_void_p(inst_start.data_ptr()),
-            ctypes.c_void_p(x2.data_ptr()), ctypes.c_void_p(cells.data_ptr()),
-            ctypes.c_void_p(route.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), nt_pad, tps, G, nw, GS,
-            ctypes.c_void_p(stream))
-    check(lib, rc, "final_gather launch")
-    final_gather.launches["flat" if v2 else "legacy"] += 1
-    return out
-
-
-final_gather.launches = collections.Counter()
-
-
-def final_gather_f64(step_meta, tile_bases, inst_start, x2, cells, route, *,
-                     tps: int, G: int, nw: int, GS: int, nt_pad: int,
-                     v2: bool) -> torch.Tensor:
-    """The final kernel in native FP64 (legacy scheme): y's grid
-    (nt_pad, 128) f64 from f64 positions.
-
-    On CUDA tensors it launches the f64 form of ``csrc/gstream_final.cu``
-    (or raises, also for the flat scheme); on CPU tensors it runs
-    ``final_gather_reference``.  ``final_gather_f64.launches`` counts
-    launches."""
-    if x2.dtype != torch.float64:
-        raise ValueError("final_gather_f64 takes float64 positions")
-    if x2.device.type == "cpu":
-        return final_gather_reference(step_meta, tile_bases, inst_start, x2,
-                                      cells, route, tps=tps, G=G, nw=nw,
-                                      GS=GS, nt_pad=nt_pad, v2=v2)
-    if x2.device.type != "cuda":
-        raise ValueError(f"final_gather_f64: unsupported device {x2.device}")
-    _check_final(step_meta, tile_bases, inst_start, x2, cells, route,
-                 tps=tps, G=G, nw=nw, GS=GS, nt_pad=nt_pad, v2=v2)
-    lib = library().lib
-    with torch.cuda.device(x2.device):
-        out = torch.empty(nt_pad, LANES, dtype=torch.float64,
-                          device=x2.device)
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = lib.gstream_final_f64_launch(
-            ctypes.c_void_p(step_meta.data_ptr()),
-            ctypes.c_void_p(inst_start.data_ptr()),
-            ctypes.c_void_p(x2.data_ptr()), ctypes.c_void_p(cells.data_ptr()),
-            ctypes.c_void_p(route.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), nt_pad, tps, G, nw,
-            ctypes.c_void_p(stream))
-    check(lib, rc, "final_gather_f64 launch")
-    final_gather_f64.launches += 1
-    return out
-
-
-final_gather_f64.launches = 0
-
-
 class FinalDevice(nn.Module):
     """One final level (a host ``_FinalLevel`` or ``_FinalLevelV2``) on the
     device; ``apply(vec)`` is y from the flat position vector ``vec`` of
-    ``n_positions`` chunk sums, through ``rows``, the level's
-    ``FinalRows`` built at upload (``rows=False``: none, for a level of a
-    ``FinalMultiDevice``, which builds one for all its levels).  The TPU
-    tables stay on the device for the k-plane ``apply_multi`` where
-    ``tables``; otherwise they are freed once ``rows`` is built, and
-    ``grid`` and ``grid_multi`` upload them anew from the host level for
-    each call (``with_tables``).  Spills with ``spill_row == nr_rows`` (the
-    padded slots of a uniform-shape final) are dropped at upload, as the
-    JAX package drops them (``mode="drop"``)."""
-
-    TABLES = ("step_meta", "tile_bases", "inst_start", "cells", "route",
-              "spill_pos", "spill_row")
+    ``n_positions`` chunk sums, and ``apply_multi(vec)`` Y from the k-plane
+    one, through ``rows``, the level's ``FinalRows`` built at upload
+    (``rows=False``: none, for a level of a ``FinalMultiDevice``, which
+    builds one for all its levels).  No TPU table stays on the device:
+    ``tables`` uploads them from the host level for one use (the map's
+    build, and ``grid``/``grid_multi``, the TPU layout's plain final, a
+    yardstick).  Spills with ``spill_row == nr_rows`` (the padded slots of
+    a uniform-shape final) are dropped at upload, as the JAX package drops
+    them (``mode="drop"``)."""
 
     def __init__(self, final, nr_rows: int, n_positions: int, device,
-                 rows: bool = True, tables: bool = True):
+                 rows: bool = True):
         super().__init__()
         dev = require_device(device)
         self.host, self.n_positions = final, n_positions
@@ -488,53 +405,64 @@ class FinalDevice(nn.Module):
         self.nt_pad = final.nt_pad
         self.x_pad_rows = final.x_pad_rows
         self.nr_rows = nr_rows
-        inst_start = _check_final_level(final, self.G, self.nw, self.GS,
-                                        self.v2)
+        self._inst_start = _check_final_level(final, self.G, self.nw,
+                                              self.GS, self.v2)
+        self._spills = _spills(final, nr_rows, n_positions)
+        self.n_spills = int(self._spills[0].size)
+        self.rows = (FinalRows.from_levels([self.tables(dev)], nr_rows,
+                                           n_positions, dev)
+                     if rows else None)
 
-        def up(a, dtype=None):
+    def tables(self, device) -> types.SimpleNamespace:
+        """The level's TPU tables on ``device``, uploaded from the host
+        level (``step_meta``, ``tile_bases``, ``inst_start``, ``cells``,
+        ``route``, the kept spills ``spill_pos``/``spill_row``), beside its
+        shape (``tps``, ``G``, ``nw``, ``GS``, ``v2``, ``nt_pad``)."""
+        dev = torch.device(device)
+        f = self.host
+
+        def up(a, dtype):
             return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
 
-        self.register_buffer("step_meta", up(final.step_meta, torch.int32))
-        self.register_buffer("tile_bases", up(final.tile_bases, torch.int32)
-                             if self.v2 else None)
-        self.register_buffer("inst_start", up(inst_start, torch.int32))
-        self.register_buffer("cells", up(final.cell_idx, torch.int16))
-        self.register_buffer("route", up(final.route, torch.int8))
-        spill_pos, spill_row = _spills(final, nr_rows, n_positions)
-        self.n_spills = int(spill_pos.size)
-        self.register_buffer("spill_pos", up(spill_pos, torch.int64))
-        self.register_buffer("spill_row", up(spill_row, torch.int64))
-        self.rows = (FinalRows.from_levels([self], nr_rows, n_positions, dev)
-                     if rows else None)
-        if not tables:
-            self.drop_tables()
+        return types.SimpleNamespace(
+            tps=self.tps, G=self.G, nw=self.nw, GS=self.GS, v2=self.v2,
+            nt_pad=self.nt_pad,
+            step_meta=up(f.step_meta, torch.int32),
+            tile_bases=up(f.tile_bases, torch.int32) if self.v2 else None,
+            inst_start=up(self._inst_start, torch.int32),
+            cells=up(f.cell_idx, torch.int16), route=up(f.route, torch.int8),
+            spill_pos=up(self._spills[0], torch.int64),
+            spill_row=up(self._spills[1], torch.int64))
 
-    def drop_tables(self) -> None:
-        """Free the TPU tables on the device (``rows`` was built from
-        them)."""
-        for k in self.TABLES:
-            setattr(self, k, None)
-
-    def with_tables(self, device) -> "FinalDevice":
-        """This level with its TPU tables on ``device``: itself where they
-        stayed, else a copy uploaded from the host level (no ``rows``)."""
-        if self.cells is not None:
-            return self
-        return FinalDevice(self.host, self.nr_rows, self.n_positions, device,
-                           rows=False)
-
-    def grid(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
-        """y's grid (nt_pad, 128) through ``kernel`` (default the wrapper
-        ``final_gather``; ``final_gather_reference`` to compare)."""
-        t = self.with_tables(vec.device)
-        flat = vec.reshape(-1)
+    def _padded(self, vec: torch.Tensor) -> torch.Tensor:
+        """vec's first x_pad_rows * 128 positions, zero-padded to them."""
         need = self.x_pad_rows * STRIPE
-        if flat.shape[0] < need:
-            flat = nn.functional.pad(flat, (0, need - flat.shape[0]))
-        x2 = flat[:need].view(-1, STRIPE)
-        return (kernel or final_gather)(
-            t.step_meta, t.tile_bases, t.inst_start, x2, t.cells, t.route,
-            tps=self.tps, G=self.G, nw=self.nw, GS=self.GS,
+        if vec.shape[0] < need:
+            pad = (0, need - vec.shape[0]) if vec.dim() == 1 else \
+                (0, 0, 0, need - vec.shape[0])
+            vec = nn.functional.pad(vec, pad)
+        return vec[:need].contiguous()
+
+    def grid(self, vec: torch.Tensor,
+             kernel=final_gather_reference) -> torch.Tensor:
+        """y's grid (nt_pad, 128) as the TPU layout computes it, from the
+        flat position vector, through ``kernel`` (the plain version) over
+        tables uploaded for the call."""
+        t = self.tables(vec.device)
+        return kernel(t.step_meta, t.tile_bases, t.inst_start,
+                      self._padded(vec.reshape(-1)).view(-1, STRIPE),
+                      t.cells, t.route, tps=self.tps, G=self.G, nw=self.nw,
+                      GS=self.GS, nt_pad=self.nt_pad, v2=self.v2)
+
+    def grid_multi(self, vec: torch.Tensor) -> torch.Tensor:
+        """The k planes' grid, row-major (nt_pad*128, k), as the TPU layout
+        computes it, from the k-plane position vector (n_positions, k),
+        through its plain version ``spmm.final_gather_multi_reference``."""
+        from .spmm import final_gather_multi_reference   # spmm imports this
+        t = self.tables(vec.device)
+        return final_gather_multi_reference(
+            t.step_meta, t.tile_bases, t.inst_start, self._padded(vec),
+            t.cells, t.route, tps=self.tps, G=self.G, nw=self.nw, GS=self.GS,
             nt_pad=self.nt_pad, v2=self.v2)
 
     def apply(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
@@ -542,30 +470,12 @@ class FinalDevice(nn.Module):
         ``final_rows``; ``final_rows_reference`` to compare)."""
         return (kernel or final_rows)(vec.reshape(-1), self.rows)
 
-    def grid_multi(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
-        """The k planes' grid, row-major (nt_pad*128, k), from the k-plane
-        position vector ``vec`` (n_positions, k), padded as ``grid`` pads,
-        through ``kernel`` (default the wrapper
-        ``spmm.final_gather_multi``)."""
-        from .spmm import final_gather_multi          # spmm imports this
-        t = self.with_tables(vec.device)
-        need = self.x_pad_rows * STRIPE
-        if vec.shape[0] < need:
-            vec = nn.functional.pad(vec, (0, 0, 0, need - vec.shape[0]))
-        return (kernel or final_gather_multi)(
-            t.step_meta, t.tile_bases, t.inst_start, vec[:need].contiguous(),
-            t.cells, t.route, tps=self.tps, G=self.G, nw=self.nw, GS=self.GS,
-            nt_pad=self.nt_pad, v2=self.v2)
-
     def apply_multi(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
         """Y (nr_rows, k) from the k-plane position vector (n_positions,
-        k): the multi-plane final, then the spills' k-plane adds."""
-        t = self.with_tables(vec.device)
-        Y = t.grid_multi(vec, kernel)[:self.nr_rows]
-        if self.n_spills:
-            # in place: Y is a view of this call's own grid
-            Y.index_add_(0, t.spill_row, vec[t.spill_pos])
-        return Y
+        k), row-major, through ``kernel`` (default the wrapper
+        ``final_rows_multi``; ``final_rows_multi_reference`` to
+        compare)."""
+        return (kernel or final_rows_multi)(vec, self.rows)
 
 
 def _check_final_level(final, G: int, nw: int, GS: int, v2: bool):
@@ -612,36 +522,38 @@ def _spills(final, nr_rows: int, n_positions: int):
 class FinalMultiDevice(nn.Module):
     """``_FinalLevelMulti`` on the device: y is the sum of one flat final
     per group of <= 8 column blocks, and of their spills, all folded into
-    one ``FinalRows`` at upload; ``levels`` are the groups, their TPU
-    tables freed once ``rows`` is built (each level's ``grid`` uploads
-    them anew)."""
+    one ``FinalRows`` at upload from the groups' TPU tables, uploaded one
+    level at a time; ``levels`` are the groups (their ``tables`` and
+    ``grid`` upload them anew)."""
 
     def __init__(self, final, nr_rows: int, n_positions: int, device):
         super().__init__()
+        dev = require_device(device)
         self.levels = nn.ModuleList(
-            FinalDevice(lvl, nr_rows, n_positions, device, rows=False)
+            FinalDevice(lvl, nr_rows, n_positions, dev, rows=False)
             for lvl in final.levels)
-        self.rows = FinalRows.from_levels(list(self.levels), nr_rows,
-                                          n_positions, require_device(device))
-        for lvl in self.levels:
-            lvl.drop_tables()
+        self.rows = FinalRows.from_levels(
+            (lvl.tables(dev) for lvl in self.levels), nr_rows, n_positions,
+            dev)
 
     def apply(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
         """y (nr_rows,) through ``kernel`` (default the wrapper
         ``final_rows``; ``final_rows_reference`` to compare)."""
         return (kernel or final_rows)(vec.reshape(-1), self.rows)
 
+    def apply_multi(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
+        """Y (nr_rows, k) from the k-plane position vector through
+        ``kernel`` (default the wrapper ``final_rows_multi``;
+        ``final_rows_multi_reference`` to compare)."""
+        return (kernel or final_rows_multi)(vec, self.rows)
 
-def final_device(final, nr_rows: int, n_positions: int, device,
-                 tables: bool = True):
-    """The device module of a host final level; ``tables``: a single
-    level keeps its TPU tables on the device (for the k-plane
-    ``apply_multi``; a multi final never does)."""
+
+def final_device(final, nr_rows: int, n_positions: int, device):
+    """The device module of a host final level."""
     if isinstance(final, _FinalLevelMulti):
         return FinalMultiDevice(final, nr_rows, n_positions, device)
     if isinstance(final, (_FinalLevel, _FinalLevelV2)):
-        return FinalDevice(final, nr_rows, n_positions, device,
-                           tables=tables)
+        return FinalDevice(final, nr_rows, n_positions, device)
     raise TypeError(f"not a final level: {type(final).__name__}")
 
 
@@ -672,13 +584,9 @@ class GStreamDevice(nn.Module):
                                      for fp in plan.flevels)
         n_positions = packed.chunk_row.size + sum(
             fp.chunk_row.size for fp in plan.flevels)
-        # the TPU tables stay on the device only where spmm_gstream's
-        # k-plane final reads them: an f32 final with no F levels
-        self.final = (final_device(
-            plan.final, packed.nr_rows, n_positions, dev,
-            tables=not len(plan.flevels)
-            and self.stream.values.dtype != torch.float64)
-            if plan.final is not None else None)
+        self.final = (final_device(plan.final, packed.nr_rows, n_positions,
+                                   dev)
+                      if plan.final is not None else None)
         # the segment-sum route reads only the positions that hold a row:
         # index_add_ of every padded position into the trap row serialises
         # on that one address
@@ -740,6 +648,20 @@ class GStreamDevice(nn.Module):
                 flat = nn.functional.pad(flat, (0, pad))
             x2 = flat[:f.padded_cols].view(-1, STRIPE)
             vec = torch.cat([vec, f(x2, kernel).reshape(-1)])
+        return vec
+
+    def positions_multi(self, chunk_sums: torch.Tensor, kernel=None):
+        """The k-plane position vector (n_positions, k), row-major: the
+        k-plane chunk sums, then each F level's outputs, each level's k
+        planes through one ``ForwardStream.forward_multi`` (``kernel``,
+        default the wrapper ``spmm.gstream_chunk_sums_multi``) on the
+        positions before it."""
+        vec = chunk_sums
+        for f in self.flevels:
+            X = vec[:f.padded_cols]
+            if X.shape[0] < f.padded_cols:
+                X = nn.functional.pad(X, (0, 0, 0, f.padded_cols - X.shape[0]))
+            vec = torch.cat([vec, f.forward_multi(X.contiguous(), kernel)])
         return vec
 
     def finish_vec(self, chunk_sums: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ import sparsetpu_torch as st
 from sparsetpu_torch import _host
 from sparsetpu_torch.formats.gold import spmm_gold
 from sparsetpu_torch.kernels import f64emu as pf
+from sparsetpu_torch.kernels import final_rows as fr
 from sparsetpu_torch.kernels import spmm as sp
 from sparsetpu_torch.kernels import spmv_fused as sf
 from sparsetpu_torch.kernels import spmv_gstream as sg
@@ -122,17 +123,18 @@ def test_classic_f64_kernels_match_plain_on_card(cuda, case):
     x = np.random.default_rng(9).standard_normal(m.nr_cols)
     x2 = d.prepare_x(x)
     n_fwd = sg.gstream_chunk_sums_f64.launches
-    n_fin = sg.final_gather_f64.launches
+    n_fin = fr.final_rows.launches.copy()
     ck = d.stream(x2)
     cr = d.stream(x2, sg.gstream_chunk_sums_reference)
     torch.cuda.synchronize()
     assert sg.gstream_chunk_sums_f64.launches == n_fwd + 1
     _agree(ck, cr)
     if d.final is not None:
-        gk = d.final.grid(cr)
+        yk = d.final.apply(cr)
         torch.cuda.synchronize()
-        assert sg.final_gather_f64.launches == n_fin + 1
-        _agree(gk, d.final.grid(cr, sg.final_gather_reference))
+        assert sum(fr.final_rows.launches[b] - n_fin[b]
+                   for b in ("short_f64", "long_f64")) >= 1
+        _agree(yk, d.final.apply(cr, fr.final_rows_reference))
     _gold_ok(m, x, d.spmv(x))
     for k in (1, 3, 8):
         X = np.random.default_rng(k).standard_normal((m.nr_cols, k))
@@ -141,8 +143,16 @@ def test_classic_f64_kernels_match_plain_on_card(cuda, case):
         mk = d.stream.forward_multi(Xp)
         torch.cuda.synchronize()
         assert sp.gstream_chunk_sums_multi_f64.launches == n + 1
-        _agree(mk, d.stream.forward_multi(
-            Xp, sp.gstream_chunk_sums_multi_reference))
+        mr = d.stream.forward_multi(Xp,
+                                    sp.gstream_chunk_sums_multi_reference)
+        _agree(mk, mr)
+        if d.final is not None:
+            n = fr.final_rows_multi.launches.copy()
+            Yk = d.final.apply_multi(mr)
+            torch.cuda.synchronize()
+            assert sum(fr.final_rows_multi.launches[b] - n[b]
+                       for b in ("short_f64", "long_f64")) >= 1
+            _agree(Yk, d.final.apply_multi(mr, fr.final_rows_multi_reference))
         _gold_multi_ok(m, X, pf.spmm_df64(d, X))
 
 

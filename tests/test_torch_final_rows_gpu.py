@@ -17,9 +17,9 @@ import sparsetpu_torch as st
 from sparsetpu_torch import _host
 from sparsetpu_torch.kernels import f64emu as pf
 from sparsetpu_torch.kernels import spmv_gstream as sg
-from sparsetpu_torch.kernels.final_rows import (SHORT_MAX, FinalRows,
-                                                final_rows,
-                                                final_rows_reference)
+from sparsetpu_torch.kernels.final_rows import (
+    SHORT_MAX, FinalRows, final_rows, final_rows_multi,
+    final_rows_multi_reference, final_rows_reference, short_max_multi)
 
 
 @pytest.fixture
@@ -134,3 +134,39 @@ def test_f64_device_through_final_rows_on_card(cuda):
     assert _host.verification(g, y.cpu().numpy(), *tol) == 0
     vec = d.positions(d.stream(d.prepare_x(x)))
     _agree(d.final.apply(vec), d.final.apply(vec, final_rows_reference))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 21, 72])
+def test_multi_bins_match_plain_on_card(cuda, dtype, k):
+    """The k-plane entry: rows of 0 to 3000 entries, a group of threads a
+    short row, a warp per (long row, plane vector); and vec and Y at an
+    address of one value past the allocation (plane vectors of one
+    value)."""
+    rng = np.random.default_rng(2)
+    lens = np.concatenate([rng.integers(0, 8, 2000), [0, 0, 1],
+                           rng.integers(2000, 3000, 20)])
+    rng.shuffle(lens)
+    n_pos = int(lens.sum()) + 1000
+    rowptr = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                          dtype=torch.int32, device=cuda)
+    idx = torch.tensor(rng.permutation(n_pos)[:int(lens.sum())],
+                       dtype=torch.int32, device=cuda)
+    rows = FinalRows(rowptr, idx, n_pos)
+    # past the threshold at any plane vector width (k / W <= k vectors)
+    assert rows.count_over(short_max_multi(k)) == 20
+    vec = torch.tensor(rng.standard_normal((n_pos, k)), dtype=dtype,
+                       device=cuda)
+    suffix = "_f64" if dtype == torch.float64 else ""
+    before = final_rows_multi.launches.copy()
+    yk = final_rows_multi(vec, rows)
+    torch.cuda.synchronize()
+    for b in ("short", "long"):
+        assert final_rows_multi.launches[b + suffix] == before[b + suffix] + 1
+    yr = final_rows_multi_reference(vec, rows)
+    _agree(yk, yr)
+    assert bool((yk[torch.from_numpy(lens == 0).to(cuda)] == 0).all())
+    off = torch.empty(n_pos * k + 1, dtype=dtype, device=cuda)[1:]
+    off.copy_(vec.reshape(-1))
+    _agree(final_rows_multi(off.view(n_pos, k), rows), yr)

@@ -57,11 +57,14 @@ def test_kernels_match_plain_on_card(cuda, kw, vdt):
     yr = dev.final.apply(vec, final_rows_reference)
     torch.cuda.synchronize()
     _close_to(yk.cpu().numpy(), yr.cpu().numpy())
-    # the TPU layout's per-instance final, each level against its plain
-    # version
+    # the TPU layout's plain final (each level's grid, sliced, and its
+    # spills), the map's yardstick
+    yt = 0
     for lvl in getattr(dev.final, "levels", [dev.final]):
-        _close_to(lvl.grid(vec).cpu().numpy(),
-                  lvl.grid(vec, sg.final_gather_reference).cpu().numpy())
+        t = lvl.tables(vec.device)
+        yl = lvl.grid(vec).reshape(-1)[:m.nr_rows].clone()
+        yt = yt + yl.index_add_(0, t.spill_row, vec[t.spill_pos])
+    _close_to(yk.cpu().numpy(), yt.cpu().numpy())
     y = dev.spmv(x2, x_is_packed=True).cpu().numpy()
     _gold_ok(m, np.asarray(x2.reshape(-1)[:m.nr_cols].cpu()), y,
              "bfloat16" if vdt is not None else np.float32)

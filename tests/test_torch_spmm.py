@@ -7,9 +7,12 @@ which are what the port's wrappers run on CPU tensors:
   fused     ``FusedDevice.spmm`` vs the JAX ``FusedDevice.spmm`` (#6);
   forward   ``gstream_chunk_sums_multi`` vs ``_gstream_chunk_sums_multi``
             (#7);
-  finals    ``FinalDevice.apply_multi`` vs ``_final_v2_sums_multi`` (#8)
-            and ``_final_gather_sums_multi`` (#9);
-  device    ``spmm_gstream`` vs the JAX ``spmm_gstream``, on every finish;
+  finals    ``FinalDevice.apply_multi`` (the row-sorted map on k planes,
+            ``final_rows_multi``) vs ``_final_v2_sums_multi`` (#8) and
+            ``_final_gather_sums_multi`` (#9);
+  device    ``spmm_gstream`` vs the JAX ``spmm_gstream``, on every finish
+            (the JAX route finishes a plane at a time where there are F
+            levels, a multi final or no final; the port never does);
   API       ``SparseMatrix @ X`` on every route vs the JAX ``spmm``.
 
 The JAX fused SpMM in interpret mode costs seconds a plane, so it runs on
@@ -37,6 +40,8 @@ from sparsetpu.utils.config import SpmvConfig
 import sparsetpu_torch as st
 from sparsetpu_torch import _host
 from sparsetpu_torch.formats.gold import spmm_gold
+from sparsetpu_torch.kernels import f64emu as pf
+from sparsetpu_torch.kernels import final_rows as fr
 from sparsetpu_torch.kernels import spmm as sp
 from sparsetpu_torch.kernels import spmv_fused as sf
 from sparsetpu_torch.kernels import spmv_gstream as sg
@@ -195,9 +200,9 @@ def test_final_multi_matches_jax(kind):
     assert dev.v2 == (kind == "flat") and dev.n_spills == pos.size - 1
     vec = np.random.default_rng(5).standard_normal((cr.shape[0], 3)).astype(
         np.float32)
-    before = sum(sp.final_gather_multi.launches.values())
+    before = sum(fr.final_rows_multi.launches.values())
     Y = dev.apply_multi(torch.from_numpy(vec)).numpy()
-    assert sum(sp.final_gather_multi.launches.values()) == before
+    assert sum(fr.final_rows_multi.launches.values()) == before
     assert Y.shape == (nr, 3)
     cs = jnp.asarray(np.ascontiguousarray(vec.T).reshape(3, -1, 128))
     _close_to(Y, np.asarray(jax_fn(jfin, cs, nr)))
@@ -217,13 +222,14 @@ def _no_final(monkeypatch):
         monkeypatch.setattr(mod._FinalLevelV2, "build", none)
 
 
-# the V2 final with no F levels (#8) is the block_cols and _classic_device
-# routes below
 DEVICES = {
     # name: (matrix, pack kwargs, final kind, F levels?)
     "legacy": (lambda: _host.random_csr(1200, 5000, 0.004, seed=12,
                                         dtype=np.float32),
                dict(shuffle_lanes=True), "FinalDevice", False),
+    "flat": (lambda: _host.random_csr(400, 4000, 0.006, seed=3,
+                                      dtype=np.float32),
+             dict(shuffle_lanes=False), "FinalDevice", False),
     # 10 sections of 4096 columns: flat finals past 8 sections
     "multi": (lambda: _host.random_csr(200, 40_000, 0.002, seed=4,
                                        dtype=np.float32),
@@ -237,8 +243,35 @@ DEVICES = {
 }
 
 
+def _one_pass(monkeypatch, dev):
+    """Make ``dev``'s SpMM count its k-plane forwards and finals, and fail
+    on a per-plane finish (``finish_vec``); returns the counts."""
+    calls = {"forward_multi": 0, "apply_multi": 0}
+
+    def count(cls, name):
+        fn = getattr(cls, name)
+
+        def counted(self, *a, **kw):
+            calls[name] += 1
+            return fn(self, *a, **kw)
+        monkeypatch.setattr(cls, name, counted)
+
+    count(sg.ForwardStream, "forward_multi")
+    if dev.final is not None:
+        count(type(dev.final), "apply_multi")
+
+    def per_plane(self, *a, **kw):
+        raise AssertionError("spmm_gstream finished a plane at a time")
+    monkeypatch.setattr(sg.GStreamDevice, "finish_vec", per_plane)
+    return calls
+
+
 @pytest.mark.parametrize("case", list(DEVICES))
 def test_spmm_gstream_matches_jax_and_gold(monkeypatch, case):
+    """Every finish: Y against the JAX ``spmm_gstream`` and the gold, in
+    one pass over the k planes: one k-plane forward a forward stream (the
+    pack's and each F level's), one k-plane final (or ``index_add_``), and
+    no per-plane finish."""
     make, kw, final_kind, has_f = DEVICES[case]
     if case == "segment_sum":
         _no_final(monkeypatch)
@@ -247,15 +280,40 @@ def test_spmm_gstream_matches_jax_and_gold(monkeypatch, case):
     dev = sg.GStreamDevice(p, "cpu")
     assert type(dev.final).__name__ == final_kind
     assert bool(len(dev.flevels)) == has_f
-    if case == "legacy":
-        assert not dev.final.v2
+    if case in ("legacy", "flat"):
+        assert dev.final.v2 == (case == "flat")
     X = _X(m.nr_cols, 2, seed=4)
-    n_multi = sum(sp.final_gather_multi.launches.values())
+    Y_jax = np.asarray(jspmm.spmm_gstream(
+        jsp.GStreamDevice(p, interpret=True), X))
+    calls = _one_pass(monkeypatch, dev)
+    n_multi = sum(fr.final_rows_multi.launches.values())
     Y = sp.spmm_gstream(dev, X).numpy()
-    assert sum(sp.final_gather_multi.launches.values()) == n_multi
-    _close_to(Y, np.asarray(jspmm.spmm_gstream(
-        jsp.GStreamDevice(p, interpret=True), X)))
+    assert sum(fr.final_rows_multi.launches.values()) == n_multi
+    assert calls == {"forward_multi": 1 + len(dev.flevels),
+                     "apply_multi": int(dev.final is not None)}
+    _close_to(Y, Y_jax)
     _gold_ok(m, X, Y)
+
+
+def test_spmm_gstream_f64_meets_gold_and_spmv(monkeypatch):
+    """The f64 device's legacy final with spills, on 3 columns: one k-plane
+    f64 forward and one k-plane f64 final, against the gold and the
+    device's own f64 ``spmv`` a column at 1e-11 * max(1, max|Y|).  (Its
+    SpMM against the JAX ``spmm_df64``, a df64 finish a plane, is
+    ``test_torch_f64.py::test_df64_gstream_device_and_spmm_match_jax``.)"""
+    m = _host.random_csr(1000, 300_000, density=40 / 300_000, seed=1)
+    d = pf.DF64GStreamDevice.from_packed(*pf.pack_gstream_df64(m, G=4),
+                                         "cpu")
+    assert d.final.n_spills > 1000
+    X = _X(m.nr_cols, 3, seed=5)
+    cols = np.stack([d.spmv(X[:, j]).numpy() for j in range(3)], 1)
+    calls = _one_pass(monkeypatch, d)
+    Y = pf.spmm_df64(d, X).numpy()
+    assert Y.dtype == np.float64
+    assert calls == {"forward_multi": 1, "apply_multi": 1}
+    for ref in (cols, spmm_gold(m, X)):
+        scale = max(1.0, float(np.abs(ref).max()))
+        assert np.abs(Y - ref).max() <= 1e-11 * scale
 
 
 def test_spmm_gstream_bf16_meets_jax_and_gold_at_bf16_tolerance():

@@ -16,6 +16,7 @@ import torch
 import sparsetpu_torch as st
 from sparsetpu_torch import _host
 from sparsetpu_torch.formats.gold import spmm_gold
+from sparsetpu_torch.kernels import final_rows as fr
 from sparsetpu_torch.kernels import spmm as sp
 from sparsetpu_torch.kernels import spmv_fused as sf
 from sparsetpu_torch.kernels import spmv_gstream as sg
@@ -67,18 +68,23 @@ def test_fused_spmm_matches_plain_on_card(cuda, case, k):
     _gold_ok(m, X, d.spmm(Xp, x_is_packed=True))
 
 
+KS = [1, 3, 4, 8, 21, 72]     # plane vectors of 1, 2 and 4 floats
+
+
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("kw,vdt", [
     (dict(G=1, Q=8), None), (dict(G=4, Q=1), None),
     (dict(G=4, Q=2, shuffle_lanes=True), None),
     (dict(G=8, GL=2), None), (dict(G=4, Q=8), torch.bfloat16)])
-def test_classic_spmm_kernels_match_plain_on_card(cuda, kw, vdt):
-    """#7 at G = 1 and G > 1, P = 1 and 8, GL pinned, bf16 values; #8 or #9
-    wherever the device has a final with no F levels."""
+def test_classic_spmm_kernels_match_plain_on_card(cuda, kw, vdt, k):
+    """#7 at G = 1 and G > 1, P = 1 and 8, GL pinned, bf16 values; the
+    k-plane final (#8, #9 as ``final_rows_multi``) wherever the device has a
+    final; Y against the gold; one forward launch a forward stream."""
     m = _host.random_csr(3000, 20_000, density=0.002, seed=1,
                          dtype=np.float32)
     dev = sg.GStreamDevice(_host.pack_gstream(m, **kw), cuda, vdt)
-    X = _X(m.nr_cols, 3, seed=2)
+    X = _X(m.nr_cols, k, seed=2)
     Xp = dev.prepare_x_multi(X)
     before = sp.gstream_chunk_sums_multi.launches
     ck = dev.stream.forward_multi(Xp)
@@ -86,18 +92,29 @@ def test_classic_spmm_kernels_match_plain_on_card(cuda, kw, vdt):
     assert sp.gstream_chunk_sums_multi.launches == before + 1
     cr = dev.stream.forward_multi(Xp, sp.gstream_chunk_sums_multi_reference)
     _close_to(ck, cr)
-    if isinstance(dev.final, sg.FinalDevice) and not len(dev.flevels):
-        _close_to(dev.final.grid_multi(cr),
-                  dev.final.grid_multi(cr, sp.final_gather_multi_reference))
-    _gold_ok(m, X, sp.spmm_gstream(dev, X),
-             "bfloat16" if vdt is not None else np.float32)
+    vec = dev.positions_multi(cr, sp.gstream_chunk_sums_multi_reference)
+    _close_to(dev.positions_multi(cr), vec)
+    if dev.final is not None:
+        before = sum(fr.final_rows_multi.launches.values())
+        Yk = dev.final.apply_multi(vec)
+        torch.cuda.synchronize()
+        assert sum(fr.final_rows_multi.launches.values()) > before
+        _close_to(Yk, dev.final.apply_multi(vec,
+                                            fr.final_rows_multi_reference))
+    before = sp.gstream_chunk_sums_multi.launches
+    Y = sp.spmm_gstream(dev, X)
+    torch.cuda.synchronize()
+    assert sp.gstream_chunk_sums_multi.launches == \
+        before + 1 + len(dev.flevels)
+    _gold_ok(m, X, Y, "bfloat16" if vdt is not None else np.float32)
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("k", KS)
 @pytest.mark.parametrize("kind", ["flat", "legacy"])
-def test_final_multi_with_spills_on_card(cuda, kind):
-    """Finals that spill: the k-plane kernel against its plain
-    version and against the per-plane final kernel."""
+def test_final_multi_with_spills_on_card(cuda, kind, k):
+    """Finals that spill: the k-plane kernel against its plain version and
+    against the one-plane kernel a plane."""
     seed, nr, nc, dens = (7, 3000, 20_000, 0.002) if kind == "flat" else \
         (12, 5000, 5000, 0.01)
     p = _host.pack_gstream(_host.random_csr(nr, nc, dens, seed=seed,
@@ -108,12 +125,31 @@ def test_final_multi_with_spills_on_card(cuda, kind):
            if kind == "flat" else fl._FinalLevel.build(cr, nr))
     assert fin.spill_pos.size > 0
     dev = sg.final_device(fin, nr, cr.size, cuda)
-    vec = torch.from_numpy(_X(cr.size, 8, seed=3)).float().to(cuda)
-    _close_to(dev.grid_multi(vec),
-              dev.grid_multi(vec, sp.final_gather_multi_reference))
+    vec = torch.from_numpy(_X(cr.size, k, seed=3)).float().to(cuda)
     Y = dev.apply_multi(vec)
-    for j in range(8):
+    _close_to(Y, dev.apply_multi(vec, fr.final_rows_multi_reference))
+    for j in range(k):
         _close_to(Y[:, j], dev.apply(vec[:, j].contiguous()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", KS)
+def test_classic_spmm_f64_kernels_match_plain_on_card(cuda, k):
+    """#13 and the k-plane f64 final on the f64 device whose legacy final
+    spills; Y against the gold at the f64 tolerance."""
+    from sparsetpu_torch.kernels import f64emu as pf
+    m = _host.random_csr(1000, 300_000, density=40 / 300_000, seed=1)
+    d = pf.DF64GStreamDevice.from_packed(*pf.pack_gstream_df64(m, G=4),
+                                         cuda)
+    assert d.final.n_spills > 1000
+    X = _X(m.nr_cols, k, seed=4)
+    Xp = d.prepare_x_multi(X)
+    ck = d.stream.forward_multi(Xp)
+    cr = d.stream.forward_multi(Xp, sp.gstream_chunk_sums_multi_reference)
+    _close_to(ck, cr)
+    _close_to(d.final.apply_multi(cr),
+              d.final.apply_multi(cr, fr.final_rows_multi_reference))
+    _gold_ok(m, X, pf.spmm_df64(d, X), np.float64)
 
 
 @pytest.mark.gpu
