@@ -20,7 +20,13 @@ Builds the CUDA kernels and the native packer from this checkout, then:
                    held to its plain version and to the TPU layout's plain
                    final (the per-level grids, the spills, the adds);
   headline         the bench.py matrix (200k x 100k, 50 nnz/row, ~10M nnz):
-                   the fused main path;
+                   the fused main path, one kernel and one memset a call
+                   (a one-call profiler trace; the run fails otherwise);
+                   the device's launch a call and back to back beside the
+                   free wrapper, and every form of the fused kernel (one
+                   block or a cluster of 2 a step, rings of 1-4, the
+                   scratch in the workspace or in shared memory) timed
+                   and held to its plain version (also in f64);
   wide x           a stand-in with the shape and nnz of SNAP/roadNet-CA
                    (1,971,281^2, 5,533,214 nnz, uniform random columns):
                    x too wide for the fused layout, so the whole matrix goes
@@ -175,6 +181,7 @@ line before the last is the kernels' JSON record; the last line is
 one, and without the repository beside it.
 """
 
+import itertools
 import json
 import os
 import sys
@@ -283,7 +290,7 @@ for _k, (_, _, _rep) in SELECT_KERNELS.items():
 TILE_ARGS = ("tile_base", "xw", "values", "i1", "rt")
 # #1 back to back at the headline as PERF.md section 6 records it (NVIDIA
 # H100 80GB HBM3, 700 W): the stage split reads it again beside its phases
-FUSED_BACK_TO_BACK_REF_MS = 0.0635
+FUSED_BACK_TO_BACK_REF_MS = 0.0544
 
 
 def _real(t) -> str:
@@ -927,31 +934,44 @@ class Smoke:
 
     def fused_kernel(self, dev, x, tag, lib_ms, multi=False):
         """The fused SpMV (or, with ``multi``, SpMM on X row-major
-        (padded_cols, k)) kernel vs its plain version, timed in turns."""
+        (padded_cols, k)) kernel vs its plain version, timed in turns.  The
+        SpMV is the device's one launch (x prepared, the spills, the live
+        counts), beside its plain version ``spmv_blocks_reference``; the
+        free wrapper ``fused_spmv`` is held to ``fused_spmv_reference`` and
+        timed beside it."""
         fused = self.fused
         if multi:
-            name, blocks = "fused_spmm", dev.blocks_multi
-            ref, k = fused.fused_spmm_reference, x.shape[1]
+            name, k = "fused_spmm", x.shape[1]
+            kern = lambda: dev.blocks_multi(x)                  # noqa: E731
+            plain = lambda: dev.blocks_multi(                   # noqa: E731
+                x, fused.fused_spmm_reference)
         else:
-            name, blocks = "fused_spmv", dev.blocks
-            ref, k = fused.fused_spmv_reference, 1
+            name, k = "fused_spmv", 1
             if dev.dtype == self.torch.float64:
                 name = "fused_spmv_f64"
-        yk, yr = blocks(x), blocks(x, ref)
+            kern = lambda: dev.spmv_blocks(x, x_is_packed=True)  # noqa: E731
+            plain = lambda: dev.spmv_blocks_reference(x)        # noqa: E731
+            yf, yfr = dev.blocks(x), dev.blocks(x, fused.fused_spmv_reference)
+            self.sync()
+            free = (self.call_ms(lambda: dev.blocks(x)),
+                    self.back_to_back(lambda: dev.blocks(x)))
+            print(f"  {name} [{tag}]: the free wrapper vs "
+                  f"fused_spmv_reference max abs {_agree(yf, yfr):.3e}, "
+                  f"{free[0]:.4f} ms a call, {free[1]:.4f} back to back",
+                  flush=True)
+        yk, yr = kern(), plain()
         self.sync()
         err = _agree(yk, yr)
         runs = {"kernel": [], "plain": []}
-        for which, fn in (("plain", lambda: blocks(x, ref)),
-                          ("kernel", lambda: blocks(x)),
-                          ("kernel", lambda: blocks(x)),
-                          ("plain", lambda: blocks(x, ref))):
-            runs[which].append((self.call_ms(fn),
-                                self._stream_ms(fn, self.dev)
-                                if self.dev.type == "cuda" else np.nan))
+        for which, fn in (("plain", plain), ("kernel", kern),
+                          ("kernel", kern), ("plain", plain)):
+            runs[which].append((self.call_ms(fn), self.back_to_back(fn)))
         ms = {k: float(np.mean([a for a, _ in v])) for k, v in runs.items()}
         back = {k: float(np.mean([b for _, b in v])) for k, v in runs.items()}
         print(f"  {name} [{tag}]: back to back kernel {back['kernel']:.4f}"
-              f" ms, plain {back['plain']:.4f} ms", flush=True)
+              f" ms, plain {back['plain']:.4f} ms; host "
+              f"{(ms['kernel'] - back['kernel']) * 1e3:.1f} us a call",
+              flush=True)
         stream = _nbytes(*(getattr(dev, n) for n, _ in fused._KERNEL_INPUTS))
         nb = stream + _nbytes(x, yk)
         if multi:
@@ -966,7 +986,62 @@ class Smoke:
                   f"one-pass bound {nb / (self.hbm * 1e6):.4f} ms",
                   flush=True)
         self.record(name, tag, err, ms["kernel"], ms["plain"], nb,
-                    2 * dev.values.numel() * k, lib_ms)
+                    2 * dev.values.numel() * k, lib_ms,
+                    None if multi else {"back_to_back_ms": back["kernel"]})
+
+    def fused_forms(self, dev, x, tag):
+        """The fused SpMV's forms at a main path's shape, each held to the
+        plain version and timed back to back and a call: one block or a
+        cluster of 2 a step, rings of 1-4, the scratch planes in the
+        workspace or in shared memory (where they fit); the device's
+        ``FORM`` restored after."""
+        if self.dev.type != "cuda":
+            return
+        fused, p = self.fused, dev.meta
+        f64 = dev.dtype == self.torch.float64
+        ref = dev.spmv_blocks_reference(x)
+        rows = []
+        for want in itertools.product((1, 2), (1, 2, 3, 4), (True, False)):
+            try:
+                f = fused.kernel_form(f64, p.T, p.planes, p.F1S,
+                                      p.fin_direct, self.dev,
+                                      **dict(zip(fused.Form._fields, want)))
+            except ValueError:
+                continue
+            if tuple(f) != want:
+                continue
+            dev._build_plan(**f._asdict())
+            fn = lambda: dev.spmv_blocks(x, x_is_packed=True)  # noqa: E731
+            err = _agree(fn(), ref)
+            rows.append((self.back_to_back(fn), self.call_ms(fn), f, err))
+        dev._build_plan()
+        for b2b, call, f, err in sorted(rows, key=lambda r: r[0]):
+            print(f"  form [{tag}] cluster={f.cluster} ring={f.ring} "
+                  f"workspace={int(f.workspace)}: back to back {b2b:.4f} "
+                  f"ms, a call {call:.4f} ms, vs plain max abs {err:.3e}"
+                  + ("  <- FORM" if f == dev.form else ""), flush=True)
+
+    def launches_a_call(self, tag, fn):
+        """(kernel launches, memsets) on the card in one call of ``fn``,
+        from a profiler trace of that call alone (every launch recorded),
+        printed by name."""
+        torch = self.torch
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        if self.dev.type != "cuda":
+            return None
+        fn()
+        self.sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        memsets = sum("memset" in e.name.lower() for e in ev)
+        print(f"  launches [{tag}]: {len(ev) - memsets} kernel(s) and "
+              f"{memsets} memset(s) in one call: "
+              f"{sorted(e.name[:48] for e in ev)}", flush=True)
+        return len(ev) - memsets, memsets
 
     def csr(self, m):
         """The matrix as a torch CSR tensor on the device (cuSPARSE)."""
@@ -1095,6 +1170,15 @@ def _fused_cases(s, dtype):
     ]
 
 
+def _device_call_agrees(s, dev, x) -> float:
+    """The device's one launch on x unpadded against its plain version
+    (``spmv_blocks_reference``); the max abs difference."""
+    xt = s.torch.as_tensor(x, dtype=dev.dtype, device=s.dev)
+    yk = dev.spmv_blocks(xt)
+    s.sync()
+    return _agree(yk, dev.spmv_blocks_reference(xt))
+
+
 def fused_regimes(s):
     """Kernel vs plain version and vs gold on one small pack per regime."""
     h, fused = s.h, s.fused
@@ -1111,13 +1195,15 @@ def fused_regimes(s):
         s.sync()
         err = _agree(yk, yr)
         rel = err / max(yr.abs().max().item(), 1e-30)
+        dev_err = _device_call_agrees(s, dev, x)
         y = dev.spmv(x2, x_is_packed=True).cpu().numpy()
         _gold_errors(h, m, x, y)
         print(f"fused regime {tag}: Q={p.Q} T={p.T} steps={p.n_steps} "
               f"SGRP={p.SGRP} fin_direct={p.fin_direct} slabs={p.n_slabs} "
               f"spills={p.spill_row.size} | kernel vs plain max abs "
-              f"{err:.3e} rel {rel:.3e} | vs spmv_gold 0 errors",
-              flush=True)
+              f"{err:.3e} rel {rel:.3e}; the device's one launch (x "
+              f"unpadded, live counts, spills) vs its plain version "
+              f"{dev_err:.3e} | vs spmv_gold 0 errors", flush=True)
         errs = []
         for k in (1, 3, 8):
             X = _X(m.nr_cols, k, seed=k)
@@ -1246,7 +1332,8 @@ def classic_regimes(s):
 
 def f64_fused_regimes(s):
     """The fused regimes with f64 values: the f64 fused kernel vs its plain
-    version, the workspace placement of its second scratch plane, and y
+    version, with its scratch planes in the workspace and in shared memory
+    (where they fit), the device's one launch, and y
     (Y at k = 1, 3, 8: one f64 SpMV a column) vs the gold."""
     h, fused, torch = s.h, s.fused, s.torch
     f64 = np.float64
@@ -1267,29 +1354,32 @@ def f64_fused_regimes(s):
         yr = dev.blocks(x2, kernel=fused.fused_spmv_reference)
         s.sync()
         err = _agree(yk, yr)
+        dev_err = _device_call_agrees(s, dev, x)
+        fits = (fused.f64_scratch_fits(p.T, p.planes, p.F1S, p.fin_direct,
+                                       s.dev) if s.dev.type == "cuda"
+                else False)
         ws = "-"
-        if not p.fin_direct and s.dev.type == "cuda":
-            # the second scratch plane in a global workspace, as the
-            # wrapper places it where the opt-in shared memory is too small
+        if fits:
+            # the scratch planes in shared memory, the form the devices
+            # leave for the workspace (FORM)
             t = {n: getattr(dev, n) for n, _ in fused._KERNEL_INPUTS}
             yw = fused._fused_spmv_f64_launch(
-                t, x2, workspace=True, T=p.T, GLW=p.GLW, P=p.planes,
+                t, x2, workspace=False, T=p.T, GLW=p.GLW, P=p.planes,
                 F1_max=p.F1_max, F2_max=p.F2_max, F1S=p.F1S, OBp=p.OBp,
                 n_slabs=p.n_slabs, fin_direct=p.fin_direct)
             s.sync()
             ws = f"{_agree(yw, yr):.3e}"
-        fits = (fused.f64_scratch_fits(p.T, p.planes, p.F1S, p.fin_direct,
-                                       s.dev) if s.dev.type == "cuda"
-                else True)
         for k in (1, 3, 8):
             X = _X(m.nr_cols, k, seed=k)
             _gold_errors_multi(s, m, X, s.f64.spmm_df64(dev, torch.as_tensor(
                 X, device=s.dev)), f64)
         print(f"f64 fused regime {tag}: Q={p.Q} T={p.T} steps={p.n_steps} "
               f"SGRP={p.SGRP} fin_direct={p.fin_direct} F1S={p.F1S} "
-              f"spills={p.spill_row.size} scratch in shared memory={fits} | "
-              f"kernel vs plain max abs {err:.3e}, workspace placement vs "
-              f"plain {ws} | y and Y (k=1,3,8) vs the gold 0 errors",
+              f"spills={p.spill_row.size} | kernel (scratch in the "
+              f"workspace) vs plain max abs {err:.3e}, the scratch in "
+              f"shared memory vs plain {ws}, the device's one launch vs its "
+              f"plain version "
+              f"{dev_err:.3e} | y and Y (k=1,3,8) vs the gold 0 errors",
               flush=True)
 
 
@@ -2493,6 +2583,14 @@ def bench_entry(s, t0):
     print(f"phase bench entry: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def one_launch(s, tag, fn):
+    """A fused ``sm @ x`` call must be one kernel and one memset."""
+    got = s.launches_a_call(tag, fn)
+    if got is not None and got != (1, 1):
+        raise RuntimeError(f"{tag}: expected one kernel and one memset a "
+                           f"call, the trace shows {got}")
+
+
 def main_path(s, tag, make, run_devices, t0):
     """Build a matrix, pack it with ``run_devices`` (a ``SparseMatrix`` or a
     ``GStreamDevice``, and the devices behind it), drive its ``spmv`` once
@@ -2564,8 +2662,11 @@ def run(device, hbm: float, small: bool = False):
                              density=0.0005, seed=1, dtype=np.float32),
         fused_only, t0)
     lib_ms = s.whole_call(sm, m, xt, "headline")
-    s.profile("headline", lambda: sm @ xt)
+    # times first: a profiler trace slows the host's later launches
     s.fused_kernel(sm.fused_device, sm.prepare_x(x), "headline", lib_ms)
+    s.fused_forms(sm.fused_device, sm.prepare_x(x), "headline")
+    s.profile("headline", lambda: sm @ xt)
+    one_launch(s, "headline", lambda: sm @ xt)
     print(f"phase headline: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- headline SpMM, k = 8: the fused SpMM kernel
@@ -2713,8 +2814,12 @@ def run(device, hbm: float, small: bool = False):
     yk, yr = light.blocks(lx), light.blocks(
         lx, kernel=fused.fused_spmv_reference)
     s.sync()
+    yd = light.spmv_blocks(xt)
+    s.sync()
     print(f"  fused_spmv [web graph, light rows]: kernel vs plain max abs "
-          f"{_agree(yk, yr):.3e}", flush=True)
+          f"{_agree(yk, yr):.3e}; the device's one launch vs its plain "
+          f"version {_agree(yd, light.spmv_blocks_reference(xt)):.3e}",
+          flush=True)
     s.gstream(sm.heavy_device, xt, "web graph (webbase-1M), heavy rows")
     tag = "web graph SpMM k=4 (webbase-1M)"
     Xt = spmm_path(s, tag, m, lambda X: sm @ X,
@@ -2751,8 +2856,10 @@ def run(device, hbm: float, small: bool = False):
                              density=0.0005, seed=1, dtype=np.float64),
         fused_f64, t0)
     lib_ms = s.whole_call(sm, m, xt, "headline f64")
-    s.profile("headline f64", lambda: sm @ xt)
     s.fused_kernel(sm.device_module, sm.prepare_x(x), "headline f64", lib_ms)
+    s.fused_forms(sm.device_module, sm.prepare_x(x), "headline f64")
+    s.profile("headline f64", lambda: sm @ xt)
+    one_launch(s, "headline f64", lambda: sm @ xt)
     tag = "headline f64 SpMM k=4"
     Xt = spmm_path(s, tag, m, lambda X: sm @ X, [sm.device_module], 4)
     s.whole_call_multi(sm, m, Xt, tag)

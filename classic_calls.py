@@ -1,5 +1,5 @@
-"""The classic routes' call times on the card, end to end, so that two trees
-of the port can be compared on one card, in turns:
+"""The routes' call times on the card, end to end, so that two trees of the
+port can be compared on one card, in turns:
 
     python3 classic_calls.py [--label NAME]
     python3 classic_calls.py --device cpu --small
@@ -10,6 +10,10 @@ roadNet-CA to 2M nnz), checks each y (each Y's first column) against the
 gold, and times, as ms a call (the median of 20 calls after 5 warm-up
 calls, CUDA events: ``bench/harness.py:call_ms``):
 
+  headline          ``sm @ x`` at the headline, f32 (the fused device);
+  headline_f64      ``sm @ x`` at the headline in f64 (the fused f64
+                    device);
+  headline_f64_k4   ``sm @ X`` there, k = 4 (one fused f64 SpMV a column);
   headline_k72      ``sm @ X`` at the headline, k = 72: past the fused
                     SpMM's limit on an H100, the classic device's k-plane
                     forward and final;
@@ -31,13 +35,24 @@ calls, CUDA events: ``bench/harness.py:call_ms``):
                     around a whole solve over its iterations, the median of
                     3 solves after one;
   spgemm_numeric    the numeric phase ``plan(b.values)`` of A @ A at the
-                    roadNet-CA stand-in cut to 2M nnz.
+                    roadNet-CA stand-in cut to 2M nnz;
+  cg_df64_iteration ``cg_df64`` (tol 1e-10) on FEM-3D Poisson 72^3 in f64
+                    through ``SparseMatrix``: host clock around a whole warm
+                    solve over its iterations, the median of 3 solves after
+                    one.
+
+``back_to_back`` holds the headline calls' device time a call with the
+calls back to back (``bench/harness.py:stream_ms``), and
+``cg_df64_profile`` one warm iteration of that solve under the profiler
+(10 iterations traced): device us an iteration by kernel name, launches an
+iteration, and the host clock's us an iteration.
 
 It calls only entry points the port has had since its SpGEMM slice, and
 ``chip_smoke.py``'s matrix builders and gold checks beside it, so the same
 file runs in an older tree of the port, copied into its root.  Prints one
 JSON line: ``label``, ``card`` (``nvidia-smi``'s name and power limit),
-``ms`` and ``pcg_iterations``.
+``ms``, ``back_to_back``, ``pcg_iterations``, ``cg_df64_iterations`` and
+``cg_df64_profile``.
 """
 
 from __future__ import annotations
@@ -60,21 +75,23 @@ def run(device: str, small: bool) -> dict:
 
     import sparsetpu_torch as st
     from sparsetpu_torch import _host as h
-    from sparsetpu_torch.bench.harness import call_ms
+    from sparsetpu_torch.bench.harness import call_ms, stream_ms
     from sparsetpu_torch.utils.device import require_device
 
     dev = require_device(device)
     sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
         else (lambda: None)
-    ms, its = {}, None
+    ms, b2b, its = {}, {}, None
 
-    def spmv(tag, m, dtype=np.float32):
+    def spmv(tag, m, dtype=np.float32, back_to_back=False):
         sm = st.SparseMatrix(m, device=dev)
         x = np.random.default_rng(0).standard_normal(m.nr_cols)
         xt = torch.as_tensor(x, dtype=getattr(torch, np.dtype(dtype).name),
                              device=dev)
         cs._gold_errors(h, m, x, (sm @ xt).cpu().numpy(), dtype)
         ms[tag] = call_ms(lambda: sm @ xt, dev, repeats=20)
+        if back_to_back and dev.type == "cuda":
+            b2b[tag] = stream_ms(lambda: sm @ xt, dev)
         return sm
 
     def spmm(tag, sm, m, k, dtype=np.float32, fn=None):
@@ -92,9 +109,13 @@ def run(device: str, small: bool) -> dict:
         ms[tag] = call_ms(lambda: fn(Xt), dev, repeats=20)
         return Xt
 
-    m = h.random_csr(20_000 if small else 200_000, 100_000, density=0.0005,
-                     seed=1, dtype=np.float32)
-    sm = st.SparseMatrix(m, device=dev)
+    nr = 20_000 if small else 200_000
+    m = h.random_csr(nr, 100_000, density=0.0005, seed=1, dtype=np.float64)
+    sm = spmv("headline_f64", m, np.float64, back_to_back=True)
+    spmm("headline_f64_k4", sm, m, 4, np.float64)
+    del sm, m
+    m = h.random_csr(nr, 100_000, density=0.0005, seed=1, dtype=np.float32)
+    sm = spmv("headline", m, back_to_back=True)
     for k in (72, 96, 128):
         Xt = spmm(f"headline_k{k}", sm, m, k)
         cols = [Xt[:, j].contiguous() for j in range(k)]
@@ -148,7 +169,67 @@ def run(device: str, small: bool) -> dict:
     bv = torch.as_tensor(m.values, device=dev)
     cs._spgemm_gold(h, m, m, plan.to_csr(plan(bv)), "spgemm")
     ms["spgemm_numeric"] = call_ms(lambda: plan(bv), dev, repeats=20)
-    return {"ms": ms, "pcg_iterations": its}
+    del plan, bv, m
+
+    m = h.fem_poisson_3d(n)
+    sm = st.SparseMatrix(m, device=dev)
+    rhs = torch.ones(m.nr_rows, dtype=torch.float64, device=dev)
+    per_it, cg_its = [], None
+    for i in range(4):
+        sync()
+        t0 = time.perf_counter()
+        res = st.cg_df64(sm.spmv, rhs, tol=1e-10, maxiter=3000, device=dev)
+        sync()
+        if i:
+            per_it.append((time.perf_counter() - t0) * 1e3
+                          / max(res.iterations, 1))
+        cg_its = res.iterations
+    rel = float(np.linalg.norm(1.0 - h.spmv_gold(m, res.x.cpu().numpy()))
+                / np.sqrt(m.nr_rows))
+    if not rel <= 1e-9:
+        raise RuntimeError(f"cg_df64: ||b - A x|| / ||b|| {rel:.3e}")
+    ms["cg_df64_iteration"] = statistics.median(per_it)
+    profile = cg_profile(lambda k: st.cg_df64(sm.spmv, rhs, tol=0.0,
+                                              maxiter=k, device=dev), dev)
+    return {"ms": ms, "back_to_back": b2b, "pcg_iterations": its,
+            "cg_df64_iterations": cg_its, "cg_df64_profile": profile}
+
+
+def cg_profile(solve, dev, iters: int = 10) -> dict:
+    """One warm iteration of ``solve(k)`` (a solve of k iterations) under
+    the profiler: ``iters`` iterations traced beside a solve of none, the
+    difference an iteration.  Device us by kernel name, launches and the
+    host clock's us, each an iteration; empty on the CPU."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    if dev.type != "cuda":
+        return {}
+    out = {}
+    for k in (0, iters):
+        solve(k)
+        torch.cuda.synchronize(dev)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            solve(k)
+            torch.cuda.synchronize(dev)
+            wall = (time.perf_counter() - t0) * 1e6
+        kern = {}
+        for e in prof.events():
+            if e.device_type == DeviceType.CUDA:
+                us, n = kern.get(e.name[:60], (0.0, 0))
+                kern[e.name[:60]] = (us + e.time_range.elapsed_us(), n + 1)
+        out[k] = (wall, kern)
+    (w0, k0), (w1, k1) = out[0], out[iters]
+    by_kernel = {name: ((us - k0.get(name, (0.0, 0))[0]) / iters,
+                        (n - k0.get(name, (0.0, 0))[1]) / iters)
+                 for name, (us, n) in k1.items()}
+    return {"host_us": (w1 - w0) / iters,
+            "device_us": sum(us for us, _ in by_kernel.values()),
+            "launches": sum(n for _, n in by_kernel.values()),
+            "by_kernel": {k: [round(us, 3), n] for k, (us, n) in sorted(
+                by_kernel.items(), key=lambda kv: -kv[1][0])[:8]}}
 
 
 def main(argv=None) -> int:

@@ -261,7 +261,12 @@ class SparseMatrix:
                         x_packed, self.nr_rows)
 
     def spmv(self, x) -> torch.Tensor:
-        """y = A @ x, a tensor on this matrix's device."""
+        """y = A @ x, a tensor on this matrix's device.  A fused matrix
+        takes x unpadded: one kernel launch and its output's memset."""
+        if self._parts is None and self._heavy_dev is None and \
+                isinstance(self._device, FusedDevice):
+            d = self._device
+            return d.spmv(torch.as_tensor(x, dtype=d.dtype, device=d.device))
         return self.spmv_packed_x(self.prepare_x(x))
 
     def spmm(self, x) -> torch.Tensor:

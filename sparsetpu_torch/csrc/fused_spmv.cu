@@ -2,9 +2,9 @@
 //
 // Replaces two TPU kernels, both launched through pl.pallas_call:
 //   sparsetpu/kernels/spmv_fused.py:_fused_kernel       (f32, launched by
-//     _fused_spmv_blocks; entry point fused_spmv_launch);
+//     _fused_spmv_blocks);
 //   sparsetpu/kernels/spmv_fused.py:_fused_df64_kernel  (f64, launched by
-//     _fused_df64_blocks; entry point fused_spmv_f64_launch).
+//     _fused_df64_blocks).
 // The TPU has no usable FP64, so its f64 kernel carries every value, x
 // element and partial sum as two floats (hi, lo) with TwoProd products and
 // double-float add trees.  Hopper has native FP64: one template, on the
@@ -16,223 +16,554 @@
 //
 //   forward   for each tile t of step i, slot (s, l) with route j = rt[s, l]
 //             and cell c = i1[s, j]:
-//               prod = values[s, l] * x2[8 * tile_base[i, t] + c, j]
+//               prod = values[s, l] * x[(8 * tile_base[i, t] + c) * 128 + j]
 //             and the Q sublanes of each chunk sum into scratch[t * P + p, l]
-//   stage 1   (skipped when fin_direct) for each of F1_max tiles:
+//   stage 1   (skipped when fin_direct) for each of fin1_cnt[i] tiles:
 //               scratch2[f, l] = sum_s (c >= 0 ? scratch[c, j] : 0)
-//   stage 2   for each of F2_max tiles, into the slab step_slab[i]:
+//   stage 2   for each of fin2_cnt[i] tiles, into the slab step_slab[i]:
 //               out[8 * fin2_group[i, f] + s, l] += (c >= 0 ? src[c, j] : 0)
 //             with src = scratch when fin_direct, else scratch2.
 //
+// and, in the same launch, the pack's spills: out[spill_pos[k]] +=
+// spill_val[k] * x[spill_col[k]], spill_pos a flat position in the slab
+// blocks (the wrapper maps each spill's y row there at upload).  x is read
+// unpadded: an index at or past n_x reads 0.
+//
 // Cells decode as the TPU's select tree does: ((c >> 3) & (groups - 1)) * 8
 // + (c & 7), and routes as a negative index wraps in jnp (j & 127), so every
-// address stays inside its buffer; the wrapper checks tile_base, fin2_group
-// and step_slab on the host.  The finish streams are strided by their
-// allocated tile counts F1A/F2A, not by F1_max/F2_max.
+// address stays inside its buffer; the wrapper checks tile_base, fin2_group,
+// step_slab and the live counts (0 <= cnt <= F_max) on the host.  The
+// finish streams are strided by their allocated tile counts F1A/F2A.  The
+// finish loops run to each step's live counts (tiles past them are drains;
+// null counts mean F1_max/F2_max, the free wrappers' form); scratch2 rows
+// from fin1_cnt[i] to F1S are zeroed, so every row stage 2 can address is
+// defined.
 //
 // What bounds it on the card: the packed stream, read once: 6 B per slot
 // forward in f32 (value + two int8 metadata bytes), 10 B in f64, plus 2 B
-// per finish slot.  x is at most 1.5M columns in f32 (6 MB) and 700k in f64
-// (5.6 MB), so its gathers hit the 50 MB L2.  The scratch planes live in
-// shared memory: T*P*128*sizeof(R) B (<= 128 KB in f64, since T*P <= 128)
-// and F1S*128*sizeof(R) B.  In f64 the two can exceed the 227 KB a block
-// may opt in to (F1S <= 128: up to 256 KB); the wrapper then passes a
-// global workspace of n_steps*F1S*128 doubles and scratch2 lives there,
-// one F1S x 128 plane a block (__syncthreads makes a block's own global
-// writes visible to the block; the plane stays in L2).
+// per live finish slot.  x is at most 1.5M columns in f32 (6 MB) and 700k
+// in f64 (5.6 MB), so its gathers hit the 50 MB L2; measured on the card,
+// what holds the kernel back is the x gathers' rate through L1 (every
+// slot a scattered 4 or 8 B load), so the design keeps L1 for them.
 //
-// Design, simple first: one thread block per step (SGRP is a TPU grid-cost
-// device; every padded sub-step is an ordinary drained step here).  1024
-// threads: each owns one lane of one tile and walks its 8 sublanes, so a
-// warp reads 128 contiguous bytes of values and 32 of routes per sublane
-// and has 8 independent gather chains in flight.  Blocks run in no order
-// and several steps share a slab, so stage 2 adds into the slab with
-// atomicAdd on an output the wrapper zeroes first; a slab that owns only
-// drained steps therefore reads 0.  Sums: each chunk and each stage-1 cell
-// adds its terms in sublane order, as the TPU kernel does; the order in
-// which steps reach a shared output row is not fixed, so results differ
+// Design.  The parent kernel read, for each slot, the route, then i1 at the
+// routed lane, then x: three dependent global loads, and nothing of the
+// next tile was in flight while a tile gathered; its 80 KB (f32) or 160 KB
+// (f64) of shared scratch left L1 small.
+//
+//   * A step's 1024 threads form groups of 128, a thread a lane.  Each
+//     group owns a ring of R slots, the i1 and rt planes of one tile (2 KB),
+//     filled by the Tensor Memory Accelerator's bulk copies
+//     (cp.async.bulk, completion on the slot's mbarrier) R tiles ahead of
+//     the compute; its first thread issues them.  The routed i1 lookup is
+//     a shared-memory read.  A group walks one sequence of items: its
+//     forward tiles, then its stage-1 tiles, then its stage-2 tiles, so
+//     the finish streams are in flight while the forward still runs.
+//     After an item the group meets at a named barrier (its own id) and
+//     its first thread refills the slot.
+//   * The values, read once by their own lane, are not staged: the copy
+//     that stages a tile's metadata also prefetches its values into the L2
+//     (cp.async.bulk.prefetch.L2), and each lane loads its 8 values with
+//     L1::no_allocate before it waits for the metadata.
+//   * The chunk sums and scratch2 live in a global workspace, one
+//     (T*P + F1S) x 128 plane a step (in L2, cached by L1), or, as a
+//     measurement form, in shared memory.  With the workspace the block
+//     takes 17-33 KB of shared memory and the carve-out leaves L1 the
+//     rest of the SM's 256 KB for the x gathers.
+//   * Forms (template parameters, fixed by the wrapper's FORM after the
+//     measurement): one block a step, or a cluster of 2 blocks of 512
+//     threads a step (each forward-sums half of the step's tiles; the
+//     finish stages read the pair's chunk sums through distributed shared
+//     memory, or the workspace); the ring depth; the scratch placement.
+//   * One launch a call: the C entry zeroes the output (cudaMemsetAsync)
+//     and launches one grid of n_steps steps plus ceil(n_spills / threads)
+//     spill blocks.
+
+// Blocks run in no order and several steps share a slab, so stage 2 and
+// the spills add into the slab with atomicAdd on the zeroed output; a slab
+// that owns only drained steps reads 0.  Sums: each chunk and each stage-1
+// cell adds its terms in sublane order, as the TPU kernel does; the order
+// in which steps reach a shared output row is not fixed, so results differ
 // from the plain PyTorch version in the order of adds only (compared at
 // rtol 1e-5, atol 1e-5 * max(1, max|y|) in f32; rtol 1e-12, atol 1e-12 *
 // max(1, max|y|) in f64).  atomicAdd on double is native on sm_60 and up.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+// Every buffer of a device and its layout, built once a device (the free
+// wrappers build one a call).  Mirrored field for field by the ctypes
+// structure in kernels/spmv_fused.py.
+struct FusedPlan {
+  const void* values;
+  const int8_t* meta_i1;
+  const int8_t* meta_rt;
+  const int32_t* tile_base;
+  const int8_t* fin1_i1;
+  const int8_t* fin1_rt;
+  const int8_t* fin2_i1;
+  const int8_t* fin2_rt;
+  const int32_t* fin2_group;
+  const int32_t* step_slab;
+  const int32_t* fin1_cnt;   // null: F1_max every step
+  const int32_t* fin2_cnt;   // null: F2_max every step
+  const int64_t* spill_pos;  // flat positions in the slab blocks
+  const int64_t* spill_col;
+  const void* spill_val;
+  void* workspace;           // null: the scratch planes in shared memory
+  long long n_out;           // elements of the slab blocks
+  int n_steps, T, GLW, P, F1_max, F2_max, F1A, F2A, F1S, OBp, fin_direct;
+  int n_spills, ring, cluster, f64, device;
+};
 
 namespace {
 
 constexpr int kLanes = 128;
 constexpr int kChunk = 8;
-constexpr int kThreads = 1024;
-constexpr int kGroups = kThreads / kLanes;   // tiles in flight per block
+constexpr int kSlots = kChunk * kLanes;   // a tile: 8 x 128 slots
+constexpr int kMaxRing = 8;
+
 
 __device__ __forceinline__ int cell(int c, int groups) {
   return ((c >> 3) & (groups - 1)) * kChunk + (c & 7);
 }
 
-// the block's dynamic shared memory, as an array of the real type
+// the block's dynamic shared memory, as an array of the real type (a typed
+// array: a byte array cost the parent kernel 2.3x)
 template <typename R> __device__ __forceinline__ R* shared_planes();
 template <> __device__ __forceinline__ float* shared_planes<float>() {
-  extern __shared__ float smem_f32[];
+  extern __shared__ __align__(128) float smem_f32[];
   return smem_f32;
 }
 template <> __device__ __forceinline__ double* shared_planes<double>() {
-  extern __shared__ double smem_f64[];
+  extern __shared__ __align__(128) double smem_f64[];
   return smem_f64;
 }
 
-// kWorkspace: scratch2 in the global workspace (else in shared memory; a
-// template parameter, so the shared-memory form addresses both scratch
-// planes as shared memory)
-template <typename R, bool kWorkspace>
-__global__ void __launch_bounds__(kThreads)
-fused_spmv_kernel(const R* __restrict__ values,
-                  const int8_t* __restrict__ meta_i1,
-                  const int8_t* __restrict__ meta_rt,
-                  const int32_t* __restrict__ tile_base,
-                  const int8_t* __restrict__ fin1_i1,
-                  const int8_t* __restrict__ fin1_rt,
-                  const int8_t* __restrict__ fin2_i1,
-                  const int8_t* __restrict__ fin2_rt,
-                  const int32_t* __restrict__ fin2_group,
-                  const int32_t* __restrict__ step_slab,
-                  const R* __restrict__ x2, R* __restrict__ out,
-                  R* workspace,   // written, then read: no __restrict__
-                  int T, int GLW, int P, int F1_max, int F2_max, int F1A,
-                  int F2A, int F1S, int OBp, int fin_direct) {
-  R* smem = shared_planes<R>();
-  const int SR = T * P;
-  const long long i = blockIdx.x;
-  R* scratch = smem;                        // SR x 128 chunk sums
-  R* scratch2 = kWorkspace                  // F1S x 128 row partials
-                    ? workspace + i * F1S * kLanes
-                    : smem + SR * kLanes;
-  const int l = threadIdx.x % kLanes;
-  const int grp = threadIdx.x / kLanes;
-  const int Q = kChunk / P;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  // ---- forward: T tiles -> per-chunk sums in shared memory
-  for (int t = grp; t < T; t += kGroups) {
-    const long long r0 = (i * T + t) * kChunk;
-    const long long xrow = (long long)kChunk * tile_base[i * T + t];
-    R sum = 0;
-#pragma unroll
-    for (int s = 0; s < kChunk; ++s) {
-      const long long row = (r0 + s) * kLanes;
-      const int j = meta_rt[row + l] & 127;
-      const int c = meta_i1[row + j];
-      sum += values[row + l] * x2[(xrow + cell(c, GLW)) * kLanes + j];
-      if ((s + 1) % Q == 0) {
-        scratch[(t * P + s / Q) * kLanes + l] = sum;
-        sum = 0;
-      }
-    }
-  }
-  if (!fin_direct) {
-    // rows stage 1 does not write are never addressed by a valid pack;
-    // keep them defined all the same
-    for (int k = threadIdx.x; k < (F1S - F1_max) * kLanes; k += kThreads)
-      scratch2[F1_max * kLanes + k] = 0;
-  }
-  __syncthreads();
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
 
-  // ---- finish stage 1: each row's chunk sums -> one partial in scratch2
-  if (!fin_direct) {
-    const int SG = SR / kChunk;
-    for (int f = grp; f < F1_max; f += kGroups) {
-      const long long r0 = (i * F1A + f) * kChunk;
-      R sum = 0;
-#pragma unroll
-      for (int s = 0; s < kChunk; ++s) {
-        const long long row = (r0 + s) * kLanes;
-        const int j = fin1_rt[row + l] & 127;
-        const int c = fin1_i1[row + j];
-        if (c >= 0) sum += scratch[cell(c, SG) * kLanes + j];
-      }
-      scratch2[f * kLanes + l] = sum;
-    }
-    __syncthreads();
-  }
+__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
 
-  // ---- finish stage 2: partials -> aligned (8, 128) groups of the slab
-  const R* src = fin_direct ? scratch : scratch2;
-  const int S2G = (fin_direct ? SR : F1S) / kChunk;
-  R* block = out + (long long)step_slab[i] * OBp * kLanes;
-  for (int f = grp; f < F2_max; f += kGroups) {
-    const long long r0 = (i * F2A + f) * kChunk;
-    const int g = fin2_group[i * F2_max + f];
-#pragma unroll
-    for (int s = 0; s < kChunk; ++s) {
-      const long long row = (r0 + s) * kLanes;
-      const int j = fin2_rt[row + l] & 127;
-      const int c = fin2_i1[row + j];
-      if (c >= 0)
-        atomicAdd(&block[(g * kChunk + s) * kLanes + l],
-                  src[cell(c, S2G) * kLanes + j]);
-    }
+// wait for the phase of parity `parity` to complete; a copy that never
+// lands (a fault the host checks should rule out) traps after ~2^28 polls
+// instead of hanging the card
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t a = smem_addr(bar);
+  uint32_t done = 0;
+  for (uint32_t polls = 0; !done; ++polls) {
+    if (polls == (1u << 28)) __trap();
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
   }
 }
 
-template <typename R, bool kWorkspace>
-int launch(const void* values, const void* meta_i1, const void* meta_rt,
-           const void* tile_base, const void* fin1_i1, const void* fin1_rt,
-           const void* fin2_i1, const void* fin2_rt, const void* fin2_group,
-           const void* step_slab, const void* x2, void* out, void* workspace,
-           int n_steps, int T, int GLW, int P, int F1_max, int F2_max,
-           int F1A, int F2A, int F1S, int OBp, int fin_direct,
-           cudaStream_t stream) {
-  const int s2 = (fin_direct || kWorkspace) ? 0 : F1S;
-  const size_t smem = (size_t)(T * P + s2) * kLanes * sizeof(R);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_spmv_kernel<R, kWorkspace>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  if (n_steps == 0) return 0;
-  fused_spmv_kernel<R, kWorkspace><<<n_steps, kThreads, smem, stream>>>(
-      (const R*)values, (const int8_t*)meta_i1, (const int8_t*)meta_rt,
-      (const int32_t*)tile_base, (const int8_t*)fin1_i1,
-      (const int8_t*)fin1_rt, (const int8_t*)fin2_i1, (const int8_t*)fin2_rt,
-      (const int32_t*)fin2_group, (const int32_t*)step_slab, (const R*)x2,
-      (R*)out, (R*)workspace, T, GLW, P, F1_max, F2_max, F1A, F2A, F1S, OBp,
-      fin_direct);
-  return (int)cudaGetLastError();
+// bytes from global into the L2, ahead of their loads
+__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src),
+               "r"(bytes)
+               : "memory");
+}
+
+// a value of the stream, read once: not kept in L1, which holds the x
+// window's lines
+__device__ __forceinline__ float load_once(const float* p) {
+  float v;
+  asm volatile("ld.global.nc.L1::no_allocate.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "l"(p));
+  return v;
+}
+__device__ __forceinline__ double load_once(const double* p) {
+  double v;
+  asm volatile("ld.global.nc.L1::no_allocate.f64 %0, [%1];\n"
+               : "=d"(v)
+               : "l"(p));
+  return v;
+}
+
+// bytes from global to this block's shared memory, completing on bar
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// the 128 threads of group g meet (named barrier g + 1; 0 is
+// __syncthreads)
+__device__ __forceinline__ void group_sync(int g) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "r"(kLanes) : "memory");
+}
+
+template <int CS>
+__device__ __forceinline__ void step_sync() {
+  if constexpr (CS == 1)
+    __syncthreads();
+  else
+    cg::this_cluster().sync();   // release/acquire at cluster scope
+}
+
+// Layout of a block's shared memory, in bytes: chunk sums (SRl rows),
+// scratch2 (S2l rows, when it is shared), the ring's int8 planes (i1 then
+// rt a slot), the mbarriers, the step's tile bases.  The real-typed
+// regions come first, so each stays aligned.
+struct Layout {
+  int SRl, S2l, slots;
+  size_t meta, bars, tb, total;
+};
+
+__host__ __device__ inline Layout layout_of(int rsize, int threads, int CS,
+                                            int ring, int T, int P, int F1S,
+                                            int fin_direct, bool ws) {
+  Layout L;
+  L.SRl = ws ? 0 : (T + CS - 1) / CS * P;
+  L.S2l = (fin_direct || ws) ? 0 : F1S / CS;
+  L.slots = threads / kLanes * ring;
+  L.meta = (size_t)(L.SRl + L.S2l) * kLanes * rsize;
+  L.bars = L.meta + (size_t)L.slots * 2 * kSlots;
+  L.tb = L.bars + (size_t)L.slots * sizeof(uint64_t);
+  L.total = L.tb + (size_t)kLanes * sizeof(int32_t);
+  return L;
+}
+
+// kWS: the chunk sums and scratch2 in the global workspace (else in shared
+// memory; a template parameter, so the shared form addresses both scratch
+// planes as shared memory)
+template <typename R, int CS, bool kWS>
+__global__ void __launch_bounds__(1024 / CS, CS)
+fused_spmv_kernel(const FusedPlan p, const R* __restrict__ x, int n_x,
+                  R* out) {
+  constexpr int NT = 1024 / CS;               // 1024 threads a step
+  constexpr int NG = NT / kLanes;
+  const int tid = threadIdx.x;
+
+  // ---- spill blocks, past the steps
+  if (blockIdx.x >= (unsigned)(p.n_steps * CS)) {
+    const long long k = (long long)(blockIdx.x - p.n_steps * CS) * NT + tid;
+    if (k < p.n_spills) {
+      const long long c = p.spill_col[k];
+      const R xv = c < n_x ? x[c] : R(0);
+      atomicAdd(out + p.spill_pos[k],
+                static_cast<const R*>(p.spill_val)[k] * xv);
+    }
+    return;
+  }
+
+  const int g = tid / kLanes;
+  const int l = tid % kLanes;
+  const bool lead = l == 0;
+  int rank = 0;
+  if constexpr (CS > 1) rank = (int)cg::this_cluster().block_rank();
+  const long long i = blockIdx.x / CS;
+  const int ring = p.ring;
+  const Layout L = layout_of(sizeof(R), NT, CS, ring, p.T, p.P, p.F1S,
+                             p.fin_direct, kWS);
+  R* planes = shared_planes<R>();
+  unsigned char* bytes = reinterpret_cast<unsigned char*>(planes);
+  int8_t* ring_meta = reinterpret_cast<int8_t*>(bytes + L.meta);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(bytes + L.bars) + g * ring;
+  int32_t* tb = reinterpret_cast<int32_t*>(bytes + L.tb);  // x row bases
+  const int Q = kChunk / p.P;
+
+  // this rank's share of the step: forward tiles [t_lo, t_hi), scratch2
+  // rows [r1_lo, r1_lo + F1S / CS) (stage 1 computes the live ones),
+  // stage-2 tiles [f2_lo, f2_hi)
+  const int Th = (p.T + CS - 1) / CS;
+  const int t_lo = rank * Th;
+  const int nt = max(min(p.T, t_lo + Th) - t_lo, 0);
+  const int cnt1 = p.fin_direct ? 0 : (p.fin1_cnt ? p.fin1_cnt[i] : p.F1_max);
+  const int cnt2 = p.fin2_cnt ? p.fin2_cnt[i] : p.F2_max;
+  const int S2h = p.F1S / CS;
+  const int r1_lo = rank * S2h;
+  const int n1 = max(min(cnt1, r1_lo + S2h) - r1_lo, 0);
+  const int h2 = (cnt2 + CS - 1) / CS;
+  const int f2_lo = rank * h2;
+  const int n2 = max(min(cnt2, f2_lo + h2) - f2_lo, 0);
+  // the chunk sums (this rank's rows) and scratch2: in shared memory, or
+  // in the step's plane of the workspace, (T*P + F1S) x 128
+  R* plane = kWS ? static_cast<R*>(p.workspace) +
+                       i * (p.T * p.P + p.F1S) * kLanes
+                 : planes;
+  R* scratch = kWS ? plane + t_lo * p.P * kLanes : planes;
+  // this group's items: forward tiles t_lo + g + k NG, then stage-1 rows
+  // r1_lo + g + k NG, then stage-2 tiles f2_lo + g + k NG
+  auto share = [&](int n) { return n > g ? (n - g + NG - 1) / NG : 0; };
+  const int nf = share(nt), e1 = nf + share(n1), e2 = e1 + share(n2);
+
+  auto issue = [&](int q) {
+    const int slot = q % ring;
+    uint64_t* bar = bars + slot;
+    int8_t* mi1 = ring_meta + (size_t)(g * ring + slot) * 2 * kSlots;
+    const int8_t* si1;
+    const int8_t* srt;
+    if (q < nf) {
+      const long long tile = i * p.T + t_lo + g + (long long)q * NG;
+      prefetch_l2(static_cast<const R*>(p.values) + tile * kSlots,
+                  kSlots * sizeof(R));
+      bar_expect(bar, 2 * kSlots);
+      si1 = p.meta_i1 + tile * kSlots;
+      srt = p.meta_rt + tile * kSlots;
+    } else if (q < e1) {
+      const long long off =
+          (i * p.F1A + r1_lo + g + (long long)(q - nf) * NG) * kSlots;
+      bar_expect(bar, 2 * kSlots);
+      si1 = p.fin1_i1 + off;
+      srt = p.fin1_rt + off;
+    } else {
+      const long long off =
+          (i * p.F2A + f2_lo + g + (long long)(q - e1) * NG) * kSlots;
+      bar_expect(bar, 2 * kSlots);
+      si1 = p.fin2_i1 + off;
+      srt = p.fin2_rt + off;
+    }
+    bulk_copy(mi1, si1, kSlots, bar);
+    bulk_copy(mi1 + kSlots, srt, kSlots, bar);
+  };
+
+  if (tid < nt) tb[tid] = kChunk * p.tile_base[i * p.T + t_lo + tid];
+  if (lead)
+    for (int s = 0; s < ring; ++s) bar_init(bars + s);
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  __syncthreads();
+  if (lead)
+    for (int q = 0; q < min(ring, e2); ++q) issue(q);
+
+  // consume item q: wait for its slot, hand the slot's planes to fn, then
+  // meet the group and refill the slot with item q + ring
+  auto consume = [&](int q, auto fn) {
+    const int slot = q % ring;
+    bar_wait(bars + slot, (q / ring) & 1);
+    const size_t s = (size_t)(g * ring + slot);
+    fn(ring_meta + s * 2 * kSlots, ring_meta + s * 2 * kSlots + kSlots);
+    group_sync(g);
+    if (lead && q + ring < e2) issue(q + ring);
+  };
+
+  // ---- forward: this rank's tiles -> per-chunk sums
+  for (int q = 0; q < nf; ++q) {
+    const int tl = g + q * NG;                  // the tile, local
+    // this lane's values, from the L2 (prefetched with the tile's
+    // metadata), in flight while the group waits for the metadata
+    const R* vg = static_cast<const R*>(p.values) +
+                  (i * p.T + t_lo + tl) * kSlots + l;
+    R v[kChunk];
+#pragma unroll
+    for (int s = 0; s < kChunk; ++s) v[s] = load_once(vg + s * kLanes);
+    consume(q, [&](const int8_t* i1, const int8_t* rt) {
+      const int xrow = tb[tl];
+      R sum = 0;
+#pragma unroll
+      for (int s = 0; s < kChunk; ++s) {
+        const int j = rt[s * kLanes + l] & 127;
+        const int c = i1[s * kLanes + j];
+        const int xi = (xrow + cell(c, p.GLW)) * kLanes + j;
+        const R xv = (unsigned)xi < (unsigned)n_x ? x[xi] : R(0);
+        sum += v[s] * xv;
+        if ((s + 1) % Q == 0) {
+          scratch[(tl * p.P + s / Q) * kLanes + l] = sum;
+          sum = 0;
+        }
+      }
+    });
+  }
+
+  R* scratch2 = kWS ? plane + p.T * p.P * kLanes : planes + L.SRl * kLanes;
+  const int s2_base = kWS ? r1_lo : 0;          // row r1_lo's local index
+  if (!p.fin_direct) {
+    // rows stage 1 does not write are never addressed by a valid pack;
+    // keep them defined all the same
+    for (int k = tid; k < (S2h - n1) * kLanes; k += NT)
+      scratch2[(s2_base + n1) * kLanes + k] = 0;
+  }
+  step_sync<CS>();
+
+  // the pair's chunk sums and scratch2 planes (distributed shared memory)
+  const R* scr_of[CS];
+  const R* s2_of[CS];
+#pragma unroll
+  for (int r = 0; r < CS; ++r) {
+    if constexpr (CS == 1 || kWS) {
+      scr_of[r] = plane;
+      s2_of[r] = scratch2;
+    } else {
+      cg::cluster_group cluster = cg::this_cluster();
+      scr_of[r] = r == rank ? scratch : cluster.map_shared_rank(scratch, r);
+      s2_of[r] = r == rank ? scratch2 : cluster.map_shared_rank(scratch2, r);
+    }
+  }
+  // the value of source row `row` (rows per rank: `per`), lane j
+  auto src_at = [&](const R* const* of, int row, int per, int j) -> R {
+    if constexpr (CS == 1 || kWS) {
+      return of[0][row * kLanes + j];
+    } else {
+      const int owner = row >= per;
+      return of[owner][(row - owner * per) * kLanes + j];
+    }
+  };
+
+  // ---- finish stage 1: each row's chunk sums -> one partial in scratch2
+  if (!p.fin_direct) {
+    const int SG = p.T * p.P / kChunk;
+    for (int q = nf; q < e1; ++q) {
+      const int fl = g + (q - nf) * NG;         // the row, local
+      consume(q, [&](const int8_t* i1, const int8_t* rt) {
+        R sum = 0;
+#pragma unroll
+        for (int s = 0; s < kChunk; ++s) {
+          const int j = rt[s * kLanes + l] & 127;
+          const int c = i1[s * kLanes + j];
+          if (c >= 0) sum += src_at(scr_of, cell(c, SG), L.SRl, j);
+        }
+        scratch2[(s2_base + fl) * kLanes + l] = sum;
+      });
+    }
+    step_sync<CS>();
+  }
+
+  // ---- finish stage 2: partials -> aligned (8, 128) groups of the slab
+  const R* const* src = p.fin_direct ? scr_of : s2_of;
+  const int per = p.fin_direct ? L.SRl : (kWS ? p.F1S : S2h);
+  const int S2G = (p.fin_direct ? p.T * p.P : p.F1S) / kChunk;
+  R* block = out + (long long)p.step_slab[i] * p.OBp * kLanes;
+  for (int q = e1; q < e2; ++q) {
+    const int f = f2_lo + g + (q - e1) * NG;
+    const int grp = p.fin2_group[i * p.F2_max + f];
+    consume(q, [&](const int8_t* i1, const int8_t* rt) {
+#pragma unroll
+      for (int s = 0; s < kChunk; ++s) {
+        const int j = rt[s * kLanes + l] & 127;
+        const int c = i1[s * kLanes + j];
+        if (c >= 0)
+          atomicAdd(&block[(grp * kChunk + s) * kLanes + l],
+                    src_at(src, cell(c, S2G), per, j));
+      }
+    });
+  }
+  // a block's shared memory outlives its pair's reads of it
+  if constexpr (CS > 1) cg::this_cluster().sync();
+}
+
+template <typename R, int CS, bool kWS>
+cudaError_t launch_form(const FusedPlan& p, const void* x, int n_x,
+                        void* out, cudaStream_t stream, bool prepare) {
+  constexpr int NT = 1024 / CS;
+  const Layout L = layout_of(sizeof(R), NT, CS, p.ring, p.T, p.P, p.F1S,
+                             p.fin_direct, kWS);
+  auto kernel = fused_spmv_kernel<R, CS, kWS>;
+  if (prepare) {
+    // the least shared memory carve-out that holds the blocks an SM runs
+    // (CS of them, their 1 KB reserve each): the rest of the SM's 256 KB
+    // stays L1 for the x window
+    const size_t need = (CS * (L.total + 1024) * 100 + 232447) / 232448;
+    const int pct = need > 100 ? 100 : (int)need;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
+    if (err != cudaSuccess) return err;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
+  }
+  const int spill_blocks = (p.n_spills + NT - 1) / NT;
+  const int grid = p.n_steps * CS + (spill_blocks + CS - 1) / CS * CS;
+  if (grid == 0) return cudaSuccess;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(NT);
+  cfg.dynamicSmemBytes = L.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CS;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = CS > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, p, static_cast<const R*>(x), n_x,
+                            static_cast<R*>(out));
+}
+
+template <typename R>
+cudaError_t dispatch(const FusedPlan& p, const void* x, int n_x, void* out,
+                     cudaStream_t stream, bool prepare) {
+  const bool ws = p.workspace != nullptr;
+  if (p.cluster == 2)
+    return ws ? launch_form<R, 2, true>(p, x, n_x, out, stream, prepare)
+              : launch_form<R, 2, false>(p, x, n_x, out, stream, prepare);
+  return ws ? launch_form<R, 1, true>(p, x, n_x, out, stream, prepare)
+            : launch_form<R, 1, false>(p, x, n_x, out, stream, prepare);
+}
+
+cudaError_t checked(const FusedPlan* p) {
+  if ((p->cluster != 1 && p->cluster != 2) || p->ring < 1 ||
+      p->ring > kMaxRing || p->T < 1 || p->T > kLanes)
+    return cudaErrorInvalidValue;
+  return cudaSuccess;
 }
 
 }  // namespace
 
-extern "C" int fused_spmv_launch(
-    const void* values, const void* meta_i1, const void* meta_rt,
-    const void* tile_base, const void* fin1_i1, const void* fin1_rt,
-    const void* fin2_i1, const void* fin2_rt, const void* fin2_group,
-    const void* step_slab, const void* x2, void* out, int n_steps, int T,
-    int GLW, int P, int F1_max, int F2_max, int F1A, int F2A, int F1S,
-    int OBp, int fin_direct, void* stream) {
-  return launch<float, false>(values, meta_i1, meta_rt, tile_base, fin1_i1,
-                              fin1_rt, fin2_i1, fin2_rt, fin2_group,
-                              step_slab, x2, out, nullptr, n_steps, T, GLW,
-                              P, F1_max, F2_max, F1A, F2A, F1S, OBp,
-                              fin_direct, (cudaStream_t)stream);
+// Shared memory bytes a block of this form takes (0 for a form that does
+// not exist); the wrapper picks the ring depth and the scratch2 placement
+// by it.
+extern "C" long long fused_spmv_smem_bytes(int f64, int cluster, int ring,
+                                           int T, int P, int F1S,
+                                           int fin_direct, int workspace) {
+  if ((cluster != 1 && cluster != 2) || ring < 1 || ring > kMaxRing) return 0;
+  return (long long)layout_of(f64 ? 8 : 4, 1024 / cluster, cluster, ring, T,
+                              P, F1S, fin_direct, workspace != 0)
+      .total;
 }
 
-// f64: double values, x2 and out; workspace is null (scratch2 in shared
-// memory) or n_steps * F1S * 128 doubles (scratch2 in device memory).
-extern "C" int fused_spmv_f64_launch(
-    const void* values, const void* meta_i1, const void* meta_rt,
-    const void* tile_base, const void* fin1_i1, const void* fin1_rt,
-    const void* fin2_i1, const void* fin2_rt, const void* fin2_group,
-    const void* step_slab, const void* x2, void* out, void* workspace,
-    int n_steps, int T, int GLW, int P, int F1_max, int F2_max, int F1A,
-    int F2A, int F1S, int OBp, int fin_direct, void* stream) {
-  if (workspace)
-    return launch<double, true>(values, meta_i1, meta_rt, tile_base, fin1_i1,
-                                fin1_rt, fin2_i1, fin2_rt, fin2_group,
-                                step_slab, x2, out, workspace, n_steps, T,
-                                GLW, P, F1_max, F2_max, F1A, F2A, F1S, OBp,
-                                fin_direct, (cudaStream_t)stream);
-  return launch<double, false>(values, meta_i1, meta_rt, tile_base, fin1_i1,
-                               fin1_rt, fin2_i1, fin2_rt, fin2_group,
-                               step_slab, x2, out, nullptr, n_steps, T, GLW,
-                               P, F1_max, F2_max, F1A, F2A, F1S, OBp,
-                               fin_direct, (cudaStream_t)stream);
+// Once a plan: opt the plan's form in to its shared memory.
+extern "C" int fused_spmv_prepare(const FusedPlan* plan) {
+  cudaError_t err = checked(plan);
+  if (err != cudaSuccess) return (int)err;
+  return (int)(plan->f64
+                   ? dispatch<double>(*plan, nullptr, 0, nullptr, 0, true)
+                   : dispatch<float>(*plan, nullptr, 0, nullptr, 0, true));
+}
+
+// A call: zero the n_out slab blocks and launch one kernel, on `stream` of
+// the plan's device.  x holds n_x elements (float, or double for f64).
+extern "C" int fused_spmv_run(const FusedPlan* plan, const void* x,
+                              long long n_x, void* out, void* stream) {
+  cudaError_t err = checked(plan);
+  if (err != cudaSuccess || n_x < 0 || n_x > INT32_MAX)
+    return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
+  int current = 0;
+  cudaGetDevice(&current);
+  if (current != plan->device) cudaSetDevice(plan->device);
+  const cudaStream_t st = (cudaStream_t)stream;
+  err = cudaMemsetAsync(out, 0,
+                        (size_t)plan->n_out * (plan->f64 ? 8 : 4), st);
+  if (err == cudaSuccess)
+    err = plan->f64 ? dispatch<double>(*plan, x, (int)n_x, out, st, false)
+                    : dispatch<float>(*plan, x, (int)n_x, out, st, false);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  if (current != plan->device) cudaSetDevice(current);
+  return (int)err;
 }
 
 extern "C" const char* sparsetpu_error_string(int err) {

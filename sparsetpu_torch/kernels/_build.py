@@ -115,8 +115,13 @@ def library() -> _Library:
     _LIBRARY.build_s = time.perf_counter() - t0
     lib = ctypes.CDLL(path)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.fused_spmv_launch.restype = i
-    lib.fused_spmv_launch.argtypes = [p] * 12 + [i] * 11 + [p]
+    # the fused SpMV: a plan (``spmv_fused._Plan``) built once, then a call
+    lib.fused_spmv_smem_bytes.restype = ll
+    lib.fused_spmv_smem_bytes.argtypes = [i] * 8
+    lib.fused_spmv_prepare.restype = i
+    lib.fused_spmv_prepare.argtypes = [p]
+    lib.fused_spmv_run.restype = i
+    lib.fused_spmv_run.argtypes = [p, p, ll, p, p]
     lib.gstream_spmv_launch.restype = i
     lib.gstream_spmv_launch.argtypes = [p, i] + [p] * 5 + [ll] + [i] * 4 \
         + [p]
@@ -126,8 +131,6 @@ def library() -> _Library:
     lib.gstream_spmm_launch.argtypes = [p, i] + [p] * 5 + [ll] + [i] * 6 \
         + [p]
     # f64 (native FP64) entry points
-    lib.fused_spmv_f64_launch.restype = i
-    lib.fused_spmv_f64_launch.argtypes = [p] * 13 + [i] * 11 + [p]
     lib.gstream_spmv_f64_launch.restype = i
     lib.gstream_spmv_f64_launch.argtypes = [p] * 5 + [ll] + [i] * 3 + [p]
     lib.gstream_spmm_f64_launch.restype = i

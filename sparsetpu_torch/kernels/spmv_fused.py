@@ -3,21 +3,26 @@
 layout (``DF64FusedDevice``, counterpart of ``spmv_fused.py:672-803``).
 
 ``FusedDevice`` holds the fused pack (``sparsetpu/pack/fused.py``, the very
-arrays the JAX ``FusedDevice`` uploads) as buffers and runs y = A @ x as one
-kernel (``csrc/fused_spmv.cu``), then reassembles y from the per-slab output
-blocks and adds the pack's spills; ``spmm`` does the same for Y = A @ X
-with one kernel for all k columns (``csrc/fused_spmm.cu``), X, the blocks
-and Y row-major.  ``fused_spmv`` and ``fused_spmm`` are the kernels'
-wrappers; ``fused_spmv_reference`` and ``fused_spmm_reference`` are the
-same functions in plain PyTorch, used for tensors on the CPU and for
-comparisons on the card.  ``fused_spmv_f64`` is the fused kernel in native
-FP64 (the f32 wrapper hands it f64 inputs); its plain version is
+arrays the JAX ``FusedDevice`` uploads) with its live finish counts and its
+spills' flat positions as buffers, checks them and builds the kernel's
+launch plan once, and runs y = A @ x as one launch of
+``csrc/fused_spmv.cu`` (the output zeroed in the same call, x read
+unpadded, the spills added by the kernel), y a view of the per-slab output
+blocks; ``spmm`` does the same for Y = A @ X with one kernel for all k
+columns (``csrc/fused_spmm.cu``), X, the blocks and Y row-major.
+``fused_spmv`` and ``fused_spmm`` are the kernels' free wrappers (checks
+and a plan a call); ``fused_spmv_reference`` and ``fused_spmm_reference``
+are the same functions in plain PyTorch, used for tensors on the CPU and
+for comparisons on the card, and ``FusedDevice.spmv_blocks_reference`` the
+device's call in plain PyTorch.  ``fused_spmv_f64`` is the fused kernel in
+native FP64 (the f32 wrapper hands it f64 inputs); its plain version is
 ``fused_spmv_reference``, which runs in the inputs' real type.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -146,12 +151,17 @@ def finish_gather_index(t: dict, n_steps: int, rows: int, stage: str, F: int,
 
 
 def _finish_gather(t: dict, src: torch.Tensor, n_steps: int, rows: int,
-                   stage: str, F: int, FA: int) -> torch.Tensor:
+                   stage: str, F: int, FA: int,
+                   cnt: torch.Tensor = None) -> torch.Tensor:
     """(n_steps, F, 8, 128, k) cell values finish stage ``stage`` (fin1 or
-    fin2) gathers from ``src`` (n_steps, rows, 128, k); drained cells read
+    fin2) gathers from ``src`` (n_steps, rows, 128, k); drained cells, and
+    with ``cnt`` (n_steps,) the tiles at or past a step's live count, read
     0."""
     k = src.shape[-1]
     idx, ok = finish_gather_index(t, n_steps, rows, stage, F, FA)
+    if cnt is not None:
+        live = torch.arange(F, device=src.device) < cnt.view(-1, 1).long()
+        ok = ok & live.view(n_steps, F, 1, 1)
     got = torch.gather(src.reshape(n_steps, rows * LANES, k), 1,
                        idx.reshape(n_steps, -1, 1).expand(-1, -1, k))
     return torch.where(ok.unsqueeze(-1), got.view(*idx.shape, k),
@@ -159,35 +169,38 @@ def _finish_gather(t: dict, src: torch.Tensor, n_steps: int, rows: int,
 
 
 def stage1_partials(t: dict, scratch: torch.Tensor, n_steps: int, F1A: int,
-                    *, F1_max, F1S) -> torch.Tensor:
+                    *, F1_max, F1S, cnt=None) -> torch.Tensor:
     """The fused kernels' finish stage 1 in plain PyTorch: each row's chunk
     sums in ``scratch`` (``forward_sums``' output) collapse to one partial.
-    ``t`` holds fin1_i1 and fin1_rt.  Returns (n_steps, F1S, 128, k), rows
-    past F1_max zero."""
+    ``t`` holds fin1_i1 and fin1_rt; ``cnt`` (n_steps,), where given, the
+    live tiles a step.  Returns (n_steps, F1S, 128, k), rows past the live
+    tiles zero."""
     n, rows, _, k = scratch.shape
     src = torch.zeros(n, F1S, LANES, k, dtype=scratch.dtype,
                       device=scratch.device)
     src[:, :F1_max] = _finish_gather(t, scratch, n_steps, rows, "fin1",
-                                     F1_max, F1A).sum(2)
+                                     F1_max, F1A, cnt).sum(2)
     return src
 
 
 def _reference(t: dict, X: torch.Tensor, n_steps: int, F1A: int, F2A: int,
                *, T, GLW, P, F1_max, F2_max, F1S, OBp, n_slabs,
-               fin_direct) -> torch.Tensor:
+               fin_direct, counts=None) -> torch.Tensor:
     """The fused kernels' function in plain PyTorch, over all steps and
     planes at once: gather, sum over Q, gather, ``index_add_``.  X is
-    row-major (cols, k); returns the slab blocks (n_slabs*OBp*128, k), in
-    X's real type."""
+    row-major (cols, k); ``counts``, where given, the live finish tiles a
+    step (fin1_cnt, fin2_cnt).  Returns the slab blocks (n_slabs*OBp*128,
+    k), in X's real type."""
     dev, k, real = X.device, X.shape[1], X.dtype
+    cnt1, cnt2 = counts or (None, None)
     scratch = forward_sums(t, X, n_steps, T=T, GLW=GLW, P=P)
     if fin_direct:
         src, rows = scratch, T * P
     else:
         src = stage1_partials(t, scratch, n_steps, F1A, F1_max=F1_max,
-                              F1S=F1S)
+                              F1S=F1S, cnt=cnt1)
         rows = F1S
-    add = _finish_gather(t, src, n_steps, rows, "fin2", F2_max, F2A)
+    add = _finish_gather(t, src, n_steps, rows, "fin2", F2_max, F2A, cnt2)
     sub = torch.arange(CHUNK, device=dev).view(1, 1, CHUNK, 1)
     lane = torch.arange(LANES, device=dev).view(1, 1, 1, LANES)
     dest = (t["step_slab"].long().view(-1, 1, 1, 1) * OBp * LANES
@@ -214,45 +227,169 @@ def fused_spmv_reference(values, meta_i1, meta_rt, tile_base, fin1_i1,
                       **kw).view(n_slabs * OBp, LANES)
 
 
+# -- the kernel's launch: a plan built once, then a call ----------------------
+
+class Form(NamedTuple):
+    """A launch form of the kernel: blocks a step (1, or a cluster of 2
+    sharing a step's 1024 threads), ring depth in tiles a group of 128
+    threads, and the scratch planes in a global workspace (else in shared
+    memory)."""
+    cluster: int
+    ring: int
+    workspace: bool
+
+
+# the kernel's form a real type, fixed by the measurement in PERF.md
+# section 6 (the cluster A/B, the ring sweep and the scratch placement at
+# the headline, NVIDIA H100 80GB HBM3)
+FORM = {torch.float32: Form(1, 2, True), torch.float64: Form(1, 1, True)}
+# the streams the Tensor Memory Accelerator copies (the metadata) or
+# prefetches (the values): their addresses must be multiples of 16 B
+_STAGED = ("values", "meta_i1", "meta_rt", "fin1_i1", "fin1_rt", "fin2_i1",
+           "fin2_rt")
+_PLAN_INTS = ("n_steps", "T", "GLW", "P", "F1_max", "F2_max", "F1A", "F2A",
+              "F1S", "OBp", "fin_direct", "n_spills", "ring", "cluster",
+              "f64", "device")
+
+
+_PLAN_POINTERS = ("values", "meta_i1", "meta_rt", "tile_base", "fin1_i1",
+                  "fin1_rt", "fin2_i1", "fin2_rt", "fin2_group", "step_slab",
+                  "fin1_cnt", "fin2_cnt", "spill_pos", "spill_col",
+                  "spill_val", "workspace")
+
+
+class _Plan(ctypes.Structure):
+    """``struct FusedPlan`` of ``csrc/fused_spmv.cu``, field for field."""
+    _fields_ = ([(name, ctypes.c_void_p) for name in _PLAN_POINTERS]
+                + [("n_out", ctypes.c_longlong)]
+                + [(name, ctypes.c_int) for name in _PLAN_INTS])
+
+
+def kernel_form(f64: bool, T: int, P: int, F1S: int, fin_direct: int,
+                device: torch.device, *, ring=None, cluster=None,
+                workspace=None) -> Form:
+    """The kernel's ``Form`` for a layout on a CUDA device: ``FORM``'s for
+    the real type, each field replaced where given, with the deepest ring
+    up to that depth that the opt-in shared memory holds."""
+    lib = library().lib
+    f = FORM[torch.float64 if f64 else torch.float32]
+    f = Form(cluster or f.cluster, ring or f.ring,
+             f.workspace if workspace is None else bool(workspace))
+    _, optin = card_limits(device)
+    for r in range(f.ring, 0, -1):
+        need = lib.fused_spmv_smem_bytes(int(f64), f.cluster, r, T, P, F1S,
+                                         fin_direct, int(f.workspace))
+        if 0 < need <= optin:
+            return f._replace(ring=r)
+    raise ValueError(f"fused_spmv: no ring fits the {optin} B of shared "
+                     f"memory a block may use (T={T} P={P} F1S={F1S})")
+
+
+def f64_scratch_fits(T: int, P: int, F1S: int, fin_direct: int,
+                     device: torch.device) -> bool:
+    """True when the f64 kernel's scratch planes, the chunk sums and
+    scratch2, fit a block's opt-in shared memory of ``device`` beside a
+    ring of one tile.  The devices keep them in a global workspace all the
+    same (``FORM``: faster on the card, the L1 left to the x gathers)."""
+    try:
+        kernel_form(True, T, P, F1S, fin_direct, device, ring=1,
+                    workspace=False)
+    except ValueError:
+        return False
+    return True
+
+
+def _plan(t: dict, dims: dict, *, form: Form, n_out: int,
+          workspace=None, counts=None, spills=None) -> _Plan:
+    """A prepared plan over the CUDA tensors ``t`` (by name) and layout
+    ``dims``: ``form`` (its workspace, a tensor, passed as ``workspace``),
+    the live counts (fin1_cnt, fin2_cnt) or None (F1_max/F2_max), the
+    spills (flat positions, columns, values) or None.  The tensors must
+    outlive the plan."""
+    for name in _STAGED:
+        if t[name].data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel's bulk copies need a "
+                             f"16-byte aligned address")
+    p = _Plan()
+    for name, _ in _KERNEL_INPUTS:
+        setattr(p, name, t[name].data_ptr())
+    if counts is not None:
+        p.fin1_cnt, p.fin2_cnt = (c.data_ptr() for c in counts)
+    if spills is not None:
+        p.spill_pos, p.spill_col, p.spill_val = (
+            a.data_ptr() for a in spills)
+        p.n_spills = spills[0].numel()
+    if workspace is not None:
+        p.workspace = workspace.data_ptr()
+    for name, value in dims.items():
+        setattr(p, name, value)
+    p.n_out = n_out
+    p.cluster, p.ring = form.cluster, form.ring
+    p.f64 = int(t["values"].dtype == torch.float64)
+    p.device = t["values"].device.index
+    lib = library().lib
+    check(lib, lib.fused_spmv_prepare(ctypes.addressof(p)),
+          "fused_spmv prepare")
+    return p
+
+
+def _run(p: _Plan, x: torch.Tensor, out: torch.Tensor) -> None:
+    """One call of a plan: zero ``out`` and launch the kernel on x, on the
+    current stream of x's device."""
+    lib = library().lib
+    check(lib, lib.fused_spmv_run(
+        ctypes.addressof(p), x.data_ptr(), x.numel(), out.data_ptr(),
+        torch.cuda.current_stream(x.device).cuda_stream), "fused_spmv launch")
+
+
+def _launch_free(t: dict, x2: torch.Tensor, *, workspace, T, GLW, P,
+                 F1_max, F2_max, F1S, OBp, n_slabs,
+                 fin_direct) -> torch.Tensor:
+    """Check the free wrappers' CUDA inputs, plan and launch the kernel
+    once: no live counts (every step to F1_max/F2_max), no spills, x2
+    padded.  ``workspace``: the scratch planes in a global workspace, or
+    None for ``FORM``'s placement."""
+    n_steps, F1A, F2A = _check_inputs(t, x2, T=T, GLW=GLW, P=P,
+                                      F1_max=F1_max, F2_max=F2_max, F1S=F1S)
+    f64 = x2.dtype == torch.float64
+    form = kernel_form(f64, T, P, F1S, fin_direct, x2.device,
+                       workspace=workspace)
+    with torch.cuda.device(x2.device):
+        out = torch.empty(n_slabs * OBp, LANES, dtype=x2.dtype,
+                          device=x2.device)
+        wbuf = (torch.empty(max(n_steps, 1) * (T * P + F1S) * LANES,
+                            dtype=x2.dtype, device=x2.device)
+                if form.workspace else None)
+        dims = dict(n_steps=n_steps, T=T, GLW=GLW, P=P, F1_max=F1_max,
+                    F2_max=F2_max, F1A=F1A, F2A=F2A, F1S=F1S, OBp=OBp,
+                    fin_direct=fin_direct)
+        _run(_plan(t, dims, form=form, n_out=out.numel(), workspace=wbuf),
+             x2, out)
+    return out
+
+
 def fused_spmv(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
                fin2_i1, fin2_rt, fin2_group, step_slab, x2, *, T: int,
                GLW: int, P: int, F1_max: int, F2_max: int, F1S: int,
                OBp: int, n_slabs: int, fin_direct: int) -> torch.Tensor:
     """The fused kernel: slab blocks (n_slabs*OBp, 128) f32 of y = A @ x.
 
-    On CUDA tensors it launches ``csrc/fused_spmv.cu`` on the current
-    stream (or raises); on CPU tensors it runs ``fused_spmv_reference``.
-    ``fused_spmv.launches`` counts kernel launches.  f64 values go to
+    On CUDA tensors it checks its inputs, plans and launches
+    ``csrc/fused_spmv.cu`` on the current stream (or raises); on CPU
+    tensors it runs ``fused_spmv_reference``.  ``fused_spmv.launches``
+    counts kernel launches, the devices' too.  f64 values go to
     ``fused_spmv_f64``."""
+    kw = dict(T=T, GLW=GLW, P=P, F1_max=F1_max, F2_max=F2_max, F1S=F1S,
+              OBp=OBp, n_slabs=n_slabs, fin_direct=fin_direct)
+    args = (values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt, fin2_i1,
+            fin2_rt, fin2_group, step_slab, x2)
     if values.dtype == torch.float64:
-        return fused_spmv_f64(
-            values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt, fin2_i1,
-            fin2_rt, fin2_group, step_slab, x2, T=T, GLW=GLW, P=P,
-            F1_max=F1_max, F2_max=F2_max, F1S=F1S, OBp=OBp,
-            n_slabs=n_slabs, fin_direct=fin_direct)
+        return fused_spmv_f64(*args, **kw)
     if x2.device.type == "cpu":
-        return fused_spmv_reference(
-            values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt, fin2_i1,
-            fin2_rt, fin2_group, step_slab, x2, T=T, GLW=GLW, P=P,
-            F1_max=F1_max, F2_max=F2_max, F1S=F1S, OBp=OBp,
-            n_slabs=n_slabs, fin_direct=fin_direct)
+        return fused_spmv_reference(*args, **kw)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_spmv: unsupported device {x2.device}")
-    t = _named(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
-               fin2_i1, fin2_rt, fin2_group, step_slab)
-    n_steps, F1A, F2A = _check_inputs(t, x2, T=T, GLW=GLW, P=P,
-                                      F1_max=F1_max, F2_max=F2_max, F1S=F1S)
-    lib = library().lib
-    with torch.cuda.device(x2.device):
-        out = torch.zeros(n_slabs * OBp, LANES, device=x2.device)
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = lib.fused_spmv_launch(
-            *(ctypes.c_void_p(t[name].data_ptr())
-              for name, _ in _KERNEL_INPUTS),
-            ctypes.c_void_p(x2.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            n_steps, T, GLW, P, F1_max, F2_max, F1A, F2A, F1S, OBp,
-            fin_direct, ctypes.c_void_p(stream))
-    check(lib, rc, "fused_spmv launch")
+    out = _launch_free(_named(*args[:-1]), x2, workspace=None, **kw)
     fused_spmv.launches += 1
     return out
 
@@ -260,38 +397,15 @@ def fused_spmv(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
 fused_spmv.launches = 0
 
 
-def f64_scratch_fits(T: int, P: int, F1S: int, fin_direct: int,
-                     device: torch.device) -> bool:
-    """True when the f64 kernel's two scratch planes, (T*P + F1S) x 128
-    doubles (T*P alone with fin_direct), fit the shared memory a block of
-    ``device`` may opt in to; else scratch2 goes to a global workspace."""
-    need = (T * P + (0 if fin_direct else F1S)) * LANES * 8
-    return need <= card_limits(device)[1]
-
-
 def _fused_spmv_f64_launch(t: dict, x2: torch.Tensor, *, workspace: bool,
                            T, GLW, P, F1_max, F2_max, F1S, OBp, n_slabs,
                            fin_direct) -> torch.Tensor:
     """Launch the f64 kernel on f64 CUDA inputs ``t`` (by name) and x2,
-    with scratch2 in a global workspace when ``workspace``."""
-    n_steps, F1A, F2A = _check_inputs(t, x2, T=T, GLW=GLW, P=P,
-                                      F1_max=F1_max, F2_max=F2_max, F1S=F1S)
-    lib = library().lib
-    with torch.cuda.device(x2.device):
-        out = torch.zeros(n_slabs * OBp, LANES, dtype=torch.float64,
-                          device=x2.device)
-        ws = (torch.empty(max(n_steps, 1) * F1S * LANES, dtype=torch.float64,
-                          device=x2.device)
-              if workspace and not fin_direct else None)
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = lib.fused_spmv_f64_launch(
-            *(ctypes.c_void_p(t[name].data_ptr())
-              for name, _ in _KERNEL_INPUTS),
-            ctypes.c_void_p(x2.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(ws.data_ptr() if ws is not None else 0),
-            n_steps, T, GLW, P, F1_max, F2_max, F1A, F2A, F1S, OBp,
-            fin_direct, ctypes.c_void_p(stream))
-    check(lib, rc, "fused_spmv_f64 launch")
+    with the scratch planes in a global workspace when ``workspace`` (in
+    shared memory when False; None: ``FORM``'s placement)."""
+    out = _launch_free(t, x2, workspace=workspace, T=T, GLW=GLW, P=P,
+                       F1_max=F1_max, F2_max=F2_max, F1S=F1S, OBp=OBp,
+                       n_slabs=n_slabs, fin_direct=fin_direct)
     fused_spmv_f64.launches += 1
     return out
 
@@ -304,10 +418,10 @@ def fused_spmv_f64(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
     of y = A @ x, for f64 values and x2.
 
     On CUDA tensors it launches the f64 form of ``csrc/fused_spmv.cu`` (or
-    raises), with scratch2 in shared memory where the card's opt-in holds
-    both scratch planes and in a global workspace where it does not; on CPU
-    tensors it runs ``fused_spmv_reference``.  ``fused_spmv_f64.launches``
-    counts kernel launches."""
+    raises) in ``FORM``'s form, the scratch planes in a global workspace;
+    on CPU tensors it runs ``fused_spmv_reference``.
+    ``fused_spmv_f64.launches`` counts kernel launches, the devices'
+    too."""
     kw = dict(T=T, GLW=GLW, P=P, F1_max=F1_max, F2_max=F2_max, F1S=F1S,
               OBp=OBp, n_slabs=n_slabs, fin_direct=fin_direct)
     if values.dtype != torch.float64:
@@ -320,8 +434,7 @@ def fused_spmv_f64(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
         raise ValueError(f"fused_spmv_f64: unsupported device {x2.device}")
     t = _named(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
                fin2_i1, fin2_rt, fin2_group, step_slab)
-    fits = f64_scratch_fits(T, P, F1S, fin_direct, x2.device)
-    return _fused_spmv_f64_launch(t, x2, workspace=not fits, **kw)
+    return _fused_spmv_f64_launch(t, x2, workspace=None, **kw)
 
 
 fused_spmv_f64.launches = 0
@@ -423,8 +536,16 @@ def _check_pack(p) -> None:
     ss = p.step_slab
     if ss.size and (ss.min() < 0 or ss.max() >= p.n_slabs):
         raise ValueError("step_slab outside the slab range")
-    if int(p.slab_bounds[-1]) - int(p.slab_bounds[0]) != p.nr_rows:
+    for name, fm in (("fin1_cnt", p.F1_max), ("fin2_cnt", p.F2_max)):
+        c = np.asarray(getattr(p, name))
+        if c.shape != (p.n_steps,) or (c.size and (c.min() < 0
+                                                   or c.max() > fm)):
+            raise ValueError(f"{name} must be (n_steps,) in [0, {fm}]")
+    sb = np.asarray(p.slab_bounds, np.int64)
+    if int(sb[-1]) - int(sb[0]) != p.nr_rows:
         raise ValueError("slab bounds do not cover the rows")
+    if np.any(np.diff(sb) < 0) or np.any(np.diff(sb) > p.OBp * LANES):
+        raise ValueError("a slab spans more rows than its out block")
     n = p.spill_row.shape[0]
     if n and (p.spill_row.min() < 0 or p.spill_row.max() >= p.nr_rows
               or p.spill_col.min() < 0
@@ -432,9 +553,26 @@ def _check_pack(p) -> None:
         raise ValueError("spill indices out of range")
 
 
+def spill_positions(p) -> np.ndarray:
+    """Each spill's flat position in the slab blocks (int64): y's row r
+    lies in the slab s whose rows hold it, at s*OBp*128 + r - (slab_bounds[s]
+    - slab_bounds[0]); exact for non-uniform slabs too (``_rows`` reads
+    the blocks back in that order)."""
+    sb = np.asarray(p.slab_bounds, np.int64)
+    sb = sb - sb[0]
+    rows = np.asarray(p.spill_row, np.int64)
+    s = np.searchsorted(sb, rows, side="right") - 1
+    return s * p.OBp * LANES + rows - sb[s]
+
+
 class FusedDevice(nn.Module):
     """A fused pack held on one device; ``spmv`` is y = A @ x in one
-    kernel pass.  Build it with ``FusedDevice.from_packed``."""
+    kernel launch.  Build it with ``FusedDevice.from_packed``.
+
+    The buffers are checked once, here; on a card the kernel's launch plan
+    (every buffer's address, the layout, the form, the spills' flat
+    positions) is built once too, so a call checks only x, allocates y's
+    blocks and launches."""
 
     def __init__(self, meta, buffers: dict):
         super().__init__()
@@ -443,25 +581,78 @@ class FusedDevice(nn.Module):
         self.n_spills = int(meta.spill_row.shape[0])
         for name, tensor in buffers.items():
             self.register_buffer(name, tensor)
+        self._kernel = fused_spmv_f64 if self.dtype == torch.float64 \
+            else fused_spmv
+        self._plan = self._workspace = self._form = None
+        self._dims = None
+        self._build_plan()
+
+    @staticmethod
+    def _buffers(packed, dev, values, spill_val) -> dict:
+        """The buffers of a checked pack on ``dev``: the kernel inputs (with
+        ``values``), the live counts and, where the pack spills, the spills'
+        flat positions, columns and values (``spill_val``)."""
+        def up(a, dtype=None):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
+
+        buffers = {name: up(getattr(packed, name), dtype)
+                   for name, dtype in _KERNEL_INPUTS if name != "values"}
+        buffers["values"] = up(values)
+        buffers["fin1_cnt"] = up(packed.fin1_cnt, torch.int32)
+        buffers["fin2_cnt"] = up(packed.fin2_cnt, torch.int32)
+        if packed.spill_row.shape[0]:
+            buffers["spill_pos"] = up(spill_positions(packed))
+            buffers["spill_col"] = up(packed.spill_col, torch.int64)
+            buffers["spill_val"] = up(spill_val)
+        return buffers
 
     @classmethod
     def from_packed(cls, packed, device) -> "FusedDevice":
         """Upload a ``FusedMatrix`` (from either package's ``pack_fused``)
         to ``device``."""
-        dev = require_device(device)
         _check_pack(packed)
+        return cls(packed, cls._buffers(
+            packed, require_device(device),
+            np.asarray(packed.values, np.float32),
+            np.asarray(packed.spill_val, np.float32)))
 
-        def up(a, dtype=None):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            return t.to(device=dev, dtype=dtype)
+    def _build_plan(self, **form) -> None:
+        """Check the buffers and, on a card, build the launch plan in the
+        form ``FORM`` fixes (a measurement may replace its fields:
+        ``kernel_form``'s keywords)."""
+        m = self.meta
+        t = {name: getattr(self, name) for name, _ in _KERNEL_INPUTS}
+        x2 = torch.empty(m.GX * CHUNK, LANES, dtype=self.dtype,
+                         device=self.device)
+        n_steps, F1A, F2A = _check_inputs(
+            t, x2, T=m.T, GLW=m.GLW, P=m.planes, F1_max=m.F1_max,
+            F2_max=m.F2_max, F1S=m.F1S)
+        self._dims = dict(n_steps=n_steps, T=m.T, GLW=m.GLW, P=m.planes,
+                          F1_max=m.F1_max, F2_max=m.F2_max, F1A=F1A,
+                          F2A=F2A, F1S=m.F1S, OBp=m.OBp,
+                          fin_direct=m.fin_direct)
+        if self.device.type != "cuda":
+            return
+        f64 = self.dtype == torch.float64
+        f = kernel_form(f64, m.T, m.planes, m.F1S, m.fin_direct,
+                        self.device, **form)
+        self._workspace = (torch.empty(
+            max(n_steps, 1) * (m.T * m.planes + m.F1S) * LANES,
+            dtype=self.dtype, device=self.device) if f.workspace else None)
+        spills = ((self.spill_pos, self.spill_col, self.spill_val)
+                  if self.n_spills else None)
+        self._form = f
+        self._plan = _plan(t, self._dims, form=f,
+                           n_out=m.n_slabs * m.OBp * LANES,
+                           workspace=self._workspace,
+                           counts=(self.fin1_cnt, self.fin2_cnt),
+                           spills=spills)
 
-        buffers = {name: up(getattr(packed, name), dtype)
-                   for name, dtype in _KERNEL_INPUTS}
-        if packed.spill_row.shape[0]:
-            buffers["spill_row"] = up(packed.spill_row, torch.int64)
-            buffers["spill_col"] = up(packed.spill_col, torch.int64)
-            buffers["spill_val"] = up(packed.spill_val, torch.float32)
-        return cls(packed, buffers)
+    def _apply(self, *args, **kwargs):
+        # moving the buffers moves the addresses the plan holds
+        out = super()._apply(*args, **kwargs)
+        self._build_plan()
+        return out
 
     @property
     def device(self) -> torch.device:
@@ -470,6 +661,11 @@ class FusedDevice(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.values.dtype
+
+    @property
+    def form(self):
+        """The ``Form`` of the kernel's launch plan; None on the CPU."""
+        return self._form
 
     def prepare_x(self, x) -> torch.Tensor:
         """x (nr_cols,) -> the resident layout (GX*8, 128) in the values'
@@ -483,8 +679,9 @@ class FusedDevice(nn.Module):
         return nn.functional.pad(x, (0, pad)).view(-1, STRIPE)
 
     def blocks(self, x2: torch.Tensor, kernel=None) -> torch.Tensor:
-        """The slab blocks for a prepared x, through ``kernel`` (default
-        the wrapper ``fused_spmv``; ``fused_spmv_reference`` to compare)."""
+        """The slab blocks for a prepared x, without the spills, through
+        ``kernel`` (default the wrapper ``fused_spmv``;
+        ``fused_spmv_reference`` to compare)."""
         m = self.meta
         return (kernel or fused_spmv)(
             *(getattr(self, name) for name, _ in _KERNEL_INPUTS), x2,
@@ -503,14 +700,62 @@ class FusedDevice(nn.Module):
         return torch.cat([flat[s * ob:s * ob + int(sb[s + 1] - sb[s])]
                           for s in range(m.n_slabs)])
 
-    def spmv(self, x, x_is_packed: bool = False) -> torch.Tensor:
-        x2 = x if x_is_packed else self.prepare_x(x)
-        y = self._rows(self.blocks(x2).view(-1))
+    def _x(self, x, x_is_packed: bool) -> torch.Tensor:
+        """x checked for a call: a tensor must already have the device's
+        real type and device (anything else is converted); (nr_cols,), or
+        (GX*8, 128) when ``x_is_packed``."""
+        m = self.meta
+        if isinstance(x, torch.Tensor):
+            if x.dtype != self.dtype or x.device != self.device:
+                raise ValueError(f"x must be a {self.dtype} tensor on "
+                                 f"{self.device}, got {x.dtype} on "
+                                 f"{x.device}")
+        else:
+            x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        want = (m.GX * CHUNK, STRIPE) if x_is_packed else (m.nr_cols,)
+        if tuple(x.shape) != want:
+            raise ValueError(f"x has shape {tuple(x.shape)}, expected "
+                             f"{want}")
+        return x if x.is_contiguous() else x.contiguous()
+
+    def spmv_blocks(self, x, x_is_packed: bool = False) -> torch.Tensor:
+        """The flat slab blocks (n_slabs*OBp*128,) of y = A @ x, spills
+        included: on a card one launch of the plan (the output zeroed in
+        it), on the CPU ``spmv_blocks_reference``."""
+        x = self._x(x, x_is_packed)
+        if x.device.type == "cpu":
+            return self.spmv_blocks_reference(x)
+        out = torch.empty(self.meta.n_slabs * self.meta.OBp * LANES,
+                          dtype=self.dtype, device=self.device)
+        _run(self._plan, x, out)
+        self._kernel.launches += 1
+        return out
+
+    def spmv_blocks_reference(self, x: torch.Tensor) -> torch.Tensor:
+        """``spmv_blocks`` in plain PyTorch: x (any length up to the padded
+        columns) read as zero past its end, the finish loops cut to the
+        live counts, the spills added at their flat positions."""
+        xp = x.reshape(-1)
+        pad = self.meta.GX * CHUNK * STRIPE - xp.numel()
+        xp = nn.functional.pad(xp, (0, pad))
+        t = {name: getattr(self, name) for name, _ in _KERNEL_INPUTS}
+        d = self._dims
+        flat = _reference(
+            t, xp.view(-1, 1), d["n_steps"], d["F1A"], d["F2A"], T=d["T"],
+            GLW=d["GLW"], P=d["P"], F1_max=d["F1_max"], F2_max=d["F2_max"],
+            F1S=d["F1S"], OBp=d["OBp"], n_slabs=self.meta.n_slabs,
+            fin_direct=d["fin_direct"],
+            counts=(self.fin1_cnt, self.fin2_cnt)).view(-1)
         if self.n_spills:
-            # in place: y is this call's own output
-            y.index_add_(0, self.spill_row,
-                         self.spill_val * x2.reshape(-1)[self.spill_col])
-        return y
+            flat.index_add_(0, self.spill_pos,
+                            self.spill_val * xp[self.spill_col])
+        return flat
+
+    def spmv(self, x, x_is_packed: bool = False) -> torch.Tensor:
+        """y = A @ x (nr_rows,): x unpadded, or prepared (``prepare_x``)
+        with ``x_is_packed``; a view of the slab blocks when the slabs are
+        uniform."""
+        return self._rows(self.spmv_blocks(x, x_is_packed))
 
     # -- SpMM (counterpart of sparsetpu/kernels/spmv_fused.py:423-474) ------
     def spmm_applicable(self, k: int) -> bool:
@@ -550,15 +795,16 @@ class FusedDevice(nn.Module):
             fin_direct=m.fin_direct, GX=m.GX)
 
     def spmm(self, X, x_is_packed: bool = False) -> torch.Tensor:
-        """Y = A @ X, (nr_rows, k): one kernel for all k planes, y's rows
-        sliced out, then the spills' k-plane scatter-add."""
+        """Y = A @ X, (nr_rows, k): one kernel for all k planes, the
+        spills' k-plane scatter-add at their flat positions, y's rows
+        sliced out."""
         Xp = X if x_is_packed else self.prepare_x_multi(X)
-        Y = self._rows(self.blocks_multi(Xp))
+        Yb = self.blocks_multi(Xp)
         if self.n_spills:
-            # in place: Y is this call's own output
-            Y.index_add_(0, self.spill_row,
-                         self.spill_val[:, None] * Xp[self.spill_col])
-        return Y
+            # in place: the blocks are this call's own output
+            Yb.index_add_(0, self.spill_pos,
+                          self.spill_val[:, None] * Xp[self.spill_col])
+        return self._rows(Yb)
 
 
 # -- f64 (DOUBLE=1) on the fused layout ---------------------------------------
@@ -605,8 +851,11 @@ class DF64FusedDevice(FusedDevice):
     usable FP64; here the planes are joined at upload into one float64
     value plane, x stays float64, and the kernel (``fused_spmv_f64``)
     computes in native FP64.  ``spmv`` returns a float64 y; the spills are
-    added with ``index_add_`` (the JAX device's ``set`` keeps one spill
-    per row: ROADMAP Queue 3).  Build it with ``from_packed``."""
+    added by the kernel, every one (the JAX device's ``set`` keeps one
+    spill per row: ROADMAP Queue 3).  When the opt-in shared memory cannot
+    hold scratch2 beside the chunk sums and the ring, the device owns a
+    global workspace for it (calls on one stream share it).  Build it with
+    ``from_packed``."""
 
     @classmethod
     def from_packed(cls, packed_hi, packed_lo, device) -> "DF64FusedDevice":
@@ -615,22 +864,12 @@ class DF64FusedDevice(FusedDevice):
         the spill values as hi + lo in float64 (padded slots are 0 in
         both)."""
         from .f64emu import join_f64          # f64emu imports this module
-        dev = require_device(device)
         _check_planes(packed_hi, packed_lo)
         _check_pack(packed_hi)
-
-        def up(a, dtype=None):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(dev, dtype)
-
-        buffers = {name: up(getattr(packed_hi, name), dtype)
-                   for name, dtype in _KERNEL_INPUTS}
-        buffers["values"] = up(join_f64(packed_hi.values, packed_lo.values))
-        if packed_hi.spill_row.shape[0]:
-            buffers["spill_row"] = up(packed_hi.spill_row, torch.int64)
-            buffers["spill_col"] = up(packed_hi.spill_col, torch.int64)
-            buffers["spill_val"] = up(join_f64(packed_hi.spill_val,
-                                               packed_lo.spill_val))
-        return cls(packed_hi, buffers)
+        return cls(packed_hi, cls._buffers(
+            packed_hi, require_device(device),
+            join_f64(packed_hi.values, packed_lo.values),
+            join_f64(packed_hi.spill_val, packed_lo.spill_val)))
 
     def spmm_applicable(self, k: int) -> bool:
         """No k-plane f64 kernel: ``spmm`` runs one SpMV a column."""
@@ -646,5 +885,5 @@ class DF64FusedDevice(FusedDevice):
         if X.dim() != 2 or X.shape[0] != self.meta.nr_cols:
             raise ValueError(f"X has shape {tuple(X.shape)}, expected "
                              f"({self.meta.nr_cols}, k)")
-        return torch.stack([self.spmv(X[:, j]) for j in range(X.shape[1])],
-                           dim=1)
+        cols = X.t().contiguous()
+        return torch.stack([self.spmv(c) for c in cols], dim=1)

@@ -24,6 +24,7 @@ from sparsetpu_torch.kernels import spmm as sp
 from sparsetpu_torch.kernels import spmv_fused as sf
 from sparsetpu_torch.kernels import spmv_gstream as sg
 from sparsetpu_torch.pack import final_levels as fl
+import test_torch_fused as _tf
 from test_torch_fused import REGIMES
 
 
@@ -195,3 +196,29 @@ def test_sparse_matrix_f64_on_card_matches_gold(cuda, block_cols):
         assert after[1] == counts[1] + 1 and after[2] == counts[2] + 1
     _gold_ok(m, x, y)
     _gold_multi_ok(m, X, Y)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(REGIMES))
+def test_fused_f64_device_forms_on_card(cuda, case):
+    """The f64 device's one launch (live counts, spills, unpadded x)
+    against its plain version in every form the card holds (one block or
+    a pair a step, rings of 1-3, the scratch planes in shared memory or the
+    workspace); the default plan keeps them in the workspace."""
+    m, d = _fused(case, cuda)
+    assert d.form == sf.kernel_form(True, d.meta.T, d.meta.planes,
+                                    d.meta.F1S, d.meta.fin_direct, cuda)
+    assert d.form.workspace
+    x = torch.as_tensor(np.random.default_rng(5).standard_normal(m.nr_cols),
+                        device=cuda)
+    ref = d.spmv_blocks_reference(x)
+    forms = _tf._forms(d)
+    assert len(forms) >= 4, forms
+    for f in forms:
+        d._build_plan(**f._asdict())
+        before = sf.fused_spmv_f64.launches
+        yk = d.spmv_blocks(x)
+        torch.cuda.synchronize()
+        assert sf.fused_spmv_f64.launches == before + 1
+        _agree(yk, ref)
+    _gold_ok(m, x.cpu().numpy(), d.spmv(x))

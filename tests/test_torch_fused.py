@@ -15,6 +15,7 @@ JAX: ``python -m pytest tests/test_torch_fused.py -m gpu --noconftest``.
 """
 
 import dataclasses
+import itertools
 import time
 
 import numpy as np
@@ -24,6 +25,7 @@ import torch
 import sparsetpu_torch as st
 from sparsetpu_torch._host import (CSRMatrix, default_tolerance, pack_fused,
                                    random_csr, spmv_gold, verification)
+from sparsetpu_torch.kernels import spmv_fused as sf
 from sparsetpu_torch.kernels.spmv_fused import (FusedDevice, fused_spmv,
                                                 fused_spmv_reference,
                                                 slabs_uniform)
@@ -265,3 +267,87 @@ def test_sparse_matrix_on_card_matches_gold(cuda):
     assert y.device.type == "cuda" and y.shape == (m.nr_rows,)
     assert fused_spmv.launches == before + 1
     _gold_ok(m, x, y.cpu().numpy())
+
+
+# ring edges: fewer tiles a step than a block has groups (T = 2, 4), tiles
+# a group no multiple of the ring (T = 16: 2 a group of 8)
+RING_EDGES = {
+    "T2_two_stage": (lambda: random_csr(3000, 20_000, 3 / 20_000, seed=1),
+                     dict(T=2, Q=1), lambda p: p.T == 2 and not p.fin_direct),
+    "T4_fin_direct": (lambda: random_csr(3000, 20_000, 3 / 20_000, seed=1),
+                      dict(T=4, Q=4), lambda p: p.T == 4 and p.fin_direct),
+    "T16": (lambda: random_csr(3000, 20_000, 3 / 20_000, seed=1),
+            dict(T=16, Q=8), lambda p: p.T == 16),
+}
+
+
+def _forms(d):
+    """Every ``Form`` the card's opt-in holds for the device's layout: one
+    block or a pair a step, rings of 1-3, the scratch planes in shared
+    memory or the workspace."""
+    p = d.meta
+    out = []
+    for want in itertools.product((1, 2), (1, 2, 3), (False, True)):
+        try:
+            f = sf.kernel_form(d.dtype == torch.float64, p.T, p.planes,
+                               p.F1S, p.fin_direct, d.device,
+                               **dict(zip(sf.Form._fields, want)))
+        except ValueError:
+            continue                    # no ring fits beside the scratch
+        if tuple(f) == want:
+            out.append(f)
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(REGIMES) + list(RING_EDGES))
+def test_device_call_matches_plain_on_card(cuda, case):
+    """The device's one launch (live counts, spills, unpadded x) against
+    its plain version, in every form the card holds; one launch a call."""
+    make, kw, regime = {**REGIMES, **RING_EDGES}[case]
+    m = make()
+    p = pack_fused(m, **kw)
+    assert p is not None and regime(p), case
+    d = FusedDevice.from_packed(p, cuda)
+    x = torch.as_tensor(np.random.default_rng(9).standard_normal(m.nr_cols),
+                        dtype=torch.float32, device=cuda)
+    ref = d.spmv_blocks_reference(x)
+    forms = _forms(d)
+    assert len(forms) >= 6, forms
+    for f in forms:
+        d._build_plan(**f._asdict())
+        before = fused_spmv.launches
+        yk = d.spmv_blocks(x)
+        torch.cuda.synchronize()
+        assert fused_spmv.launches == before + 1
+        _close_to(yk.cpu().numpy(), ref.cpu().numpy())
+    _gold_ok(m, x.cpu().numpy(), d.spmv(x).cpu().numpy())
+
+
+def _kernels_a_call(fn):
+    """(kernel launches, memsets) on the card in one call of ``fn``, from
+    a profiler trace of that call alone."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    memsets = sum("memset" in e.name.lower() for e in events)
+    return len(events) - memsets, memsets
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_one_launch_a_call_on_card(cuda, dtype):
+    """``sm @ x`` on a fused matrix: one kernel and one memset."""
+    m = random_csr(4000, 20_000, density=0.002, seed=1, dtype=dtype)
+    sm = st.SparseMatrix(m, device=cuda)
+    assert sm.fused_device is not None
+    x = torch.as_tensor(np.random.default_rng(0).standard_normal(m.nr_cols),
+                        dtype=getattr(torch, np.dtype(dtype).name),
+                        device=cuda)
+    assert _kernels_a_call(lambda: sm @ x) == (1, 1)
