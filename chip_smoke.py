@@ -23,10 +23,7 @@ Builds the CUDA kernels and the native packer from this checkout, then:
                    the fused main path, one kernel and one memset a call
                    (a one-call profiler trace; the run fails otherwise);
                    the device's launch a call and back to back beside the
-                   free wrapper, and every form of the fused kernel (one
-                   block or a cluster of 2 a step, rings of 1-4, the
-                   scratch in the workspace or in shared memory) timed
-                   and held to its plain version (also in f64);
+                   free wrapper, held to its plain version (also in f64);
   wide x           a stand-in with the shape and nnz of SNAP/roadNet-CA
                    (1,971,281^2, 5,533,214 nnz, uniform random columns):
                    x too wide for the fused layout, so the whole matrix goes
@@ -72,9 +69,9 @@ and Y = A @ X (SpMM) beside them:
 
 and f64 (DOUBLE=1, native FP64 kernels) beside them:
 
-  f64 regimes      the fused regimes with f64 values, plus the fused f64
-                   kernel with its second scratch plane in a global
-                   workspace; the classic f64 device at G = 1 and G > 1,
+  f64 regimes      the fused regimes with f64 values, the free wrapper
+                   and the device's launch each held to the plain version;
+                   the classic f64 device at G = 1 and G > 1,
                    with a legacy final that spills, and the segment-sum
                    route; A @ X at k = 1, 3, 8 on each;
   headline f64     the headline matrix with f64 values: ``sm @ x`` on the
@@ -181,7 +178,6 @@ line before the last is the kernels' JSON record; the last line is
 one, and without the repository beside it.
 """
 
-import itertools
 import json
 import os
 import sys
@@ -290,7 +286,7 @@ for _k, (_, _, _rep) in SELECT_KERNELS.items():
 TILE_ARGS = ("tile_base", "xw", "values", "i1", "rt")
 # #1 back to back at the headline as PERF.md section 6 records it (NVIDIA
 # H100 80GB HBM3, 700 W): the stage split reads it again beside its phases
-FUSED_BACK_TO_BACK_REF_MS = 0.0544
+FUSED_BACK_TO_BACK_REF_MS = 0.0528
 
 
 def _real(t) -> str:
@@ -374,6 +370,24 @@ def _X(n, k, seed):
 def _nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
+
+
+def _fused_bytes(dev, k, spills) -> int:
+    """Bytes a fused SpMV (SpMM: k columns) must read on this run's data:
+    the forward stream (values, both metadata planes, tile bases); of the
+    finish streams only the live tiles (fin1_cnt and fin2_cnt a step, 2 B
+    a slot) and their out groups; the steps' slabs and live counts; with
+    ``spills``, the spills; x at its real length."""
+    p = dev.meta
+    elem = dev.values.element_size()
+    live1 = 0 if p.fin_direct else int(np.asarray(p.fin1_cnt).sum())
+    live2 = int(np.asarray(p.fin2_cnt).sum())
+    nb = _nbytes(dev.values, dev.meta_i1, dev.meta_rt, dev.tile_base,
+                 dev.step_slab, dev.fin1_cnt, dev.fin2_cnt)
+    nb += (live1 + live2) * 2 * 8 * 128 + live2 * 4    # 8 x 128 a tile
+    if spills and dev.n_spills:
+        nb += _nbytes(dev.spill_pos, dev.spill_col, dev.spill_val)
+    return nb + p.nr_cols * k * elem
 
 
 def _empty_trailing_slabs(h, dtype=np.float32):
@@ -973,7 +987,7 @@ class Smoke:
               f"{(ms['kernel'] - back['kernel']) * 1e3:.1f} us a call",
               flush=True)
         stream = _nbytes(*(getattr(dev, n) for n, _ in fused._KERNEL_INPUTS))
-        nb = stream + _nbytes(x, yk)
+        nb = _fused_bytes(dev, k, spills=not multi) + _nbytes(yk)
         if multi:
             p = dev.meta
             plane = (p.T * p.planes + (0 if p.fin_direct else p.F1S)) * 512
@@ -988,38 +1002,6 @@ class Smoke:
         self.record(name, tag, err, ms["kernel"], ms["plain"], nb,
                     2 * dev.values.numel() * k, lib_ms,
                     None if multi else {"back_to_back_ms": back["kernel"]})
-
-    def fused_forms(self, dev, x, tag):
-        """The fused SpMV's forms at a main path's shape, each held to the
-        plain version and timed back to back and a call: one block or a
-        cluster of 2 a step, rings of 1-4, the scratch planes in the
-        workspace or in shared memory (where they fit); the device's
-        ``FORM`` restored after."""
-        if self.dev.type != "cuda":
-            return
-        fused, p = self.fused, dev.meta
-        f64 = dev.dtype == self.torch.float64
-        ref = dev.spmv_blocks_reference(x)
-        rows = []
-        for want in itertools.product((1, 2), (1, 2, 3, 4), (True, False)):
-            try:
-                f = fused.kernel_form(f64, p.T, p.planes, p.F1S,
-                                      p.fin_direct, self.dev,
-                                      **dict(zip(fused.Form._fields, want)))
-            except ValueError:
-                continue
-            if tuple(f) != want:
-                continue
-            dev._build_plan(**f._asdict())
-            fn = lambda: dev.spmv_blocks(x, x_is_packed=True)  # noqa: E731
-            err = _agree(fn(), ref)
-            rows.append((self.back_to_back(fn), self.call_ms(fn), f, err))
-        dev._build_plan()
-        for b2b, call, f, err in sorted(rows, key=lambda r: r[0]):
-            print(f"  form [{tag}] cluster={f.cluster} ring={f.ring} "
-                  f"workspace={int(f.workspace)}: back to back {b2b:.4f} "
-                  f"ms, a call {call:.4f} ms, vs plain max abs {err:.3e}"
-                  + ("  <- FORM" if f == dev.form else ""), flush=True)
 
     def launches_a_call(self, tag, fn):
         """(kernel launches, memsets) on the card in one call of ``fn``,
@@ -1331,10 +1313,9 @@ def classic_regimes(s):
 
 
 def f64_fused_regimes(s):
-    """The fused regimes with f64 values: the f64 fused kernel vs its plain
-    version, with its scratch planes in the workspace and in shared memory
-    (where they fit), the device's one launch, and y
-    (Y at k = 1, 3, 8: one f64 SpMV a column) vs the gold."""
+    """The fused regimes with f64 values: the f64 fused kernel (its free
+    wrapper and the device's one launch) vs its plain version, and y (Y at
+    k = 1, 3, 8: one f64 SpMV a column) vs the gold."""
     h, fused, torch = s.h, s.fused, s.torch
     f64 = np.float64
     cases = _fused_cases(s, f64)
@@ -1355,30 +1336,14 @@ def f64_fused_regimes(s):
         s.sync()
         err = _agree(yk, yr)
         dev_err = _device_call_agrees(s, dev, x)
-        fits = (fused.f64_scratch_fits(p.T, p.planes, p.F1S, p.fin_direct,
-                                       s.dev) if s.dev.type == "cuda"
-                else False)
-        ws = "-"
-        if fits:
-            # the scratch planes in shared memory, the form the devices
-            # leave for the workspace (FORM)
-            t = {n: getattr(dev, n) for n, _ in fused._KERNEL_INPUTS}
-            yw = fused._fused_spmv_f64_launch(
-                t, x2, workspace=False, T=p.T, GLW=p.GLW, P=p.planes,
-                F1_max=p.F1_max, F2_max=p.F2_max, F1S=p.F1S, OBp=p.OBp,
-                n_slabs=p.n_slabs, fin_direct=p.fin_direct)
-            s.sync()
-            ws = f"{_agree(yw, yr):.3e}"
         for k in (1, 3, 8):
             X = _X(m.nr_cols, k, seed=k)
             _gold_errors_multi(s, m, X, s.f64.spmm_df64(dev, torch.as_tensor(
                 X, device=s.dev)), f64)
         print(f"f64 fused regime {tag}: Q={p.Q} T={p.T} steps={p.n_steps} "
               f"SGRP={p.SGRP} fin_direct={p.fin_direct} F1S={p.F1S} "
-              f"spills={p.spill_row.size} | kernel (scratch in the "
-              f"workspace) vs plain max abs {err:.3e}, the scratch in "
-              f"shared memory vs plain {ws}, the device's one launch vs its "
-              f"plain version "
+              f"spills={p.spill_row.size} | the free wrapper vs plain max "
+              f"abs {err:.3e}, the device's one launch vs its plain version "
               f"{dev_err:.3e} | y and Y (k=1,3,8) vs the gold 0 errors",
               flush=True)
 
@@ -2664,7 +2629,6 @@ def run(device, hbm: float, small: bool = False):
     lib_ms = s.whole_call(sm, m, xt, "headline")
     # times first: a profiler trace slows the host's later launches
     s.fused_kernel(sm.fused_device, sm.prepare_x(x), "headline", lib_ms)
-    s.fused_forms(sm.fused_device, sm.prepare_x(x), "headline")
     s.profile("headline", lambda: sm @ xt)
     one_launch(s, "headline", lambda: sm @ xt)
     print(f"phase headline: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2857,7 +2821,6 @@ def run(device, hbm: float, small: bool = False):
         fused_f64, t0)
     lib_ms = s.whole_call(sm, m, xt, "headline f64")
     s.fused_kernel(sm.device_module, sm.prepare_x(x), "headline f64", lib_ms)
-    s.fused_forms(sm.device_module, sm.prepare_x(x), "headline f64")
     s.profile("headline f64", lambda: sm @ xt)
     one_launch(s, "headline f64", lambda: sm @ xt)
     tag = "headline f64 SpMM k=4"

@@ -52,10 +52,10 @@
 // (f64) of shared scratch left L1 small.
 //
 //   * A step's 1024 threads form groups of 128, a thread a lane.  Each
-//     group owns a ring of R slots, the i1 and rt planes of one tile (2 KB),
-//     filled by the Tensor Memory Accelerator's bulk copies
-//     (cp.async.bulk, completion on the slot's mbarrier) R tiles ahead of
-//     the compute; its first thread issues them.  The routed i1 lookup is
+//     group owns a ring of kRing slots, the i1 and rt planes of one tile
+//     (2 KB), filled by the Tensor Memory Accelerator's bulk copies
+//     (cp.async.bulk, completion on the slot's mbarrier) kRing tiles ahead
+//     of the compute; its first thread issues them.  The routed i1 lookup is
 //     a shared-memory read.  A group walks one sequence of items: its
 //     forward tiles, then its stage-1 tiles, then its stage-2 tiles, so
 //     the finish streams are in flight while the forward still runs.
@@ -66,17 +66,16 @@
 //     (cp.async.bulk.prefetch.L2), and each lane loads its 8 values with
 //     L1::no_allocate before it waits for the metadata.
 //   * The chunk sums and scratch2 live in a global workspace, one
-//     (T*P + F1S) x 128 plane a step (in L2, cached by L1), or, as a
-//     measurement form, in shared memory.  With the workspace the block
-//     takes 17-33 KB of shared memory and the carve-out leaves L1 the
-//     rest of the SM's 256 KB for the x gathers.
-//   * Forms (template parameters, fixed by the wrapper's FORM after the
-//     measurement): one block a step, or a cluster of 2 blocks of 512
-//     threads a step (each forward-sums half of the step's tiles; the
-//     finish stages read the pair's chunk sums through distributed shared
-//     memory, or the workspace); the ring depth; the scratch placement.
+//     (T*P + F1S) x 128 plane a step (in L2, cached by L1), which the
+//     caller allocates for each call on the call's stream.  The block
+//     takes 17-33 KB of shared memory and the carve-out leaves L1 the rest
+//     of the SM's 256 KB for the x gathers.  (Measured on the card and
+//     dropped: the scratch in shared memory, and a cluster of 2 blocks a
+//     step; PERF.md section 6.)
+//   * One block of 1024 threads a step; kRing is 2 in f32 and 1 in f64
+//     (the depths the card's sweep chose).
 //   * One launch a call: the C entry zeroes the output (cudaMemsetAsync)
-//     and launches one grid of n_steps steps plus ceil(n_spills / threads)
+//     and launches one grid of n_steps steps plus ceil(n_spills / 1024)
 //     spill blocks.
 
 // Blocks run in no order and several steps share a slab, so stage 2 and
@@ -88,11 +87,8 @@
 // rtol 1e-5, atol 1e-5 * max(1, max|y|) in f32; rtol 1e-12, atol 1e-12 *
 // max(1, max|y|) in f64).  atomicAdd on double is native on sm_60 and up.
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-namespace cg = cooperative_groups;
 
 // Every buffer of a device and its layout, built once a device (the free
 // wrappers build one a call).  Mirrored field for field by the ctypes
@@ -113,10 +109,9 @@ struct FusedPlan {
   const int64_t* spill_pos;  // flat positions in the slab blocks
   const int64_t* spill_col;
   const void* spill_val;
-  void* workspace;           // null: the scratch planes in shared memory
   long long n_out;           // elements of the slab blocks
   int n_steps, T, GLW, P, F1_max, F2_max, F1A, F2A, F1S, OBp, fin_direct;
-  int n_spills, ring, cluster, f64, device;
+  int n_spills, f64, device;
 };
 
 namespace {
@@ -124,23 +119,23 @@ namespace {
 constexpr int kLanes = 128;
 constexpr int kChunk = 8;
 constexpr int kSlots = kChunk * kLanes;   // a tile: 8 x 128 slots
-constexpr int kMaxRing = 8;
+constexpr int kThreads = 1024;            // a block, a step
+constexpr int kGroups = kThreads / kLanes;
 
+// tiles in flight a group of 128 threads
+template <typename R> constexpr int kRing = sizeof(R) == 4 ? 2 : 1;
+
+// Layout of a block's shared memory, in bytes: the ring's int8 planes (i1
+// then rt a slot), the mbarriers, the step's tile bases.
+template <typename R> struct Layout {
+  static constexpr int slots = kGroups * kRing<R>;
+  static constexpr size_t bars = (size_t)slots * 2 * kSlots;
+  static constexpr size_t tb = bars + (size_t)slots * sizeof(uint64_t);
+  static constexpr size_t total = tb + (size_t)kLanes * sizeof(int32_t);
+};
 
 __device__ __forceinline__ int cell(int c, int groups) {
   return ((c >> 3) & (groups - 1)) * kChunk + (c & 7);
-}
-
-// the block's dynamic shared memory, as an array of the real type (a typed
-// array: a byte array cost the parent kernel 2.3x)
-template <typename R> __device__ __forceinline__ R* shared_planes();
-template <> __device__ __forceinline__ float* shared_planes<float>() {
-  extern __shared__ __align__(128) float smem_f32[];
-  return smem_f32;
-}
-template <> __device__ __forceinline__ double* shared_planes<double>() {
-  extern __shared__ __align__(128) double smem_f64[];
-  return smem_f64;
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -218,51 +213,18 @@ __device__ __forceinline__ void group_sync(int g) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "r"(kLanes) : "memory");
 }
 
-template <int CS>
-__device__ __forceinline__ void step_sync() {
-  if constexpr (CS == 1)
-    __syncthreads();
-  else
-    cg::this_cluster().sync();   // release/acquire at cluster scope
-}
-
-// Layout of a block's shared memory, in bytes: chunk sums (SRl rows),
-// scratch2 (S2l rows, when it is shared), the ring's int8 planes (i1 then
-// rt a slot), the mbarriers, the step's tile bases.  The real-typed
-// regions come first, so each stays aligned.
-struct Layout {
-  int SRl, S2l, slots;
-  size_t meta, bars, tb, total;
-};
-
-__host__ __device__ inline Layout layout_of(int rsize, int threads, int CS,
-                                            int ring, int T, int P, int F1S,
-                                            int fin_direct, bool ws) {
-  Layout L;
-  L.SRl = ws ? 0 : (T + CS - 1) / CS * P;
-  L.S2l = (fin_direct || ws) ? 0 : F1S / CS;
-  L.slots = threads / kLanes * ring;
-  L.meta = (size_t)(L.SRl + L.S2l) * kLanes * rsize;
-  L.bars = L.meta + (size_t)L.slots * 2 * kSlots;
-  L.tb = L.bars + (size_t)L.slots * sizeof(uint64_t);
-  L.total = L.tb + (size_t)kLanes * sizeof(int32_t);
-  return L;
-}
-
-// kWS: the chunk sums and scratch2 in the global workspace (else in shared
-// memory; a template parameter, so the shared form addresses both scratch
-// planes as shared memory)
-template <typename R, int CS, bool kWS>
-__global__ void __launch_bounds__(1024 / CS, CS)
+// ws: the call's workspace, n_steps planes of (T*P + F1S) x 128
+template <typename R>
+__global__ void __launch_bounds__(kThreads, 1)
 fused_spmv_kernel(const FusedPlan p, const R* __restrict__ x, int n_x,
-                  R* out) {
-  constexpr int NT = 1024 / CS;               // 1024 threads a step
-  constexpr int NG = NT / kLanes;
+                  R* out, R* ws) {
+  constexpr int ring = kRing<R>;
+  using L = Layout<R>;
   const int tid = threadIdx.x;
 
   // ---- spill blocks, past the steps
-  if (blockIdx.x >= (unsigned)(p.n_steps * CS)) {
-    const long long k = (long long)(blockIdx.x - p.n_steps * CS) * NT + tid;
+  if (blockIdx.x >= (unsigned)p.n_steps) {
+    const long long k = (long long)(blockIdx.x - p.n_steps) * kThreads + tid;
     if (k < p.n_spills) {
       const long long c = p.spill_col[k];
       const R xv = c < n_x ? x[c] : R(0);
@@ -272,46 +234,28 @@ fused_spmv_kernel(const FusedPlan p, const R* __restrict__ x, int n_x,
     return;
   }
 
+  extern __shared__ __align__(128) unsigned char smem[];
   const int g = tid / kLanes;
   const int l = tid % kLanes;
   const bool lead = l == 0;
-  int rank = 0;
-  if constexpr (CS > 1) rank = (int)cg::this_cluster().block_rank();
-  const long long i = blockIdx.x / CS;
-  const int ring = p.ring;
-  const Layout L = layout_of(sizeof(R), NT, CS, ring, p.T, p.P, p.F1S,
-                             p.fin_direct, kWS);
-  R* planes = shared_planes<R>();
-  unsigned char* bytes = reinterpret_cast<unsigned char*>(planes);
-  int8_t* ring_meta = reinterpret_cast<int8_t*>(bytes + L.meta);
-  uint64_t* bars = reinterpret_cast<uint64_t*>(bytes + L.bars) + g * ring;
-  int32_t* tb = reinterpret_cast<int32_t*>(bytes + L.tb);  // x row bases
+  const long long i = blockIdx.x;
+  int8_t* ring_meta = reinterpret_cast<int8_t*>(smem);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::bars) + g * ring;
+  int32_t* tb = reinterpret_cast<int32_t*>(smem + L::tb);  // x row bases
   const int Q = kChunk / p.P;
 
-  // this rank's share of the step: forward tiles [t_lo, t_hi), scratch2
-  // rows [r1_lo, r1_lo + F1S / CS) (stage 1 computes the live ones),
-  // stage-2 tiles [f2_lo, f2_hi)
-  const int Th = (p.T + CS - 1) / CS;
-  const int t_lo = rank * Th;
-  const int nt = max(min(p.T, t_lo + Th) - t_lo, 0);
+  // the step's live finish tiles
   const int cnt1 = p.fin_direct ? 0 : (p.fin1_cnt ? p.fin1_cnt[i] : p.F1_max);
   const int cnt2 = p.fin2_cnt ? p.fin2_cnt[i] : p.F2_max;
-  const int S2h = p.F1S / CS;
-  const int r1_lo = rank * S2h;
-  const int n1 = max(min(cnt1, r1_lo + S2h) - r1_lo, 0);
-  const int h2 = (cnt2 + CS - 1) / CS;
-  const int f2_lo = rank * h2;
-  const int n2 = max(min(cnt2, f2_lo + h2) - f2_lo, 0);
-  // the chunk sums (this rank's rows) and scratch2: in shared memory, or
-  // in the step's plane of the workspace, (T*P + F1S) x 128
-  R* plane = kWS ? static_cast<R*>(p.workspace) +
-                       i * (p.T * p.P + p.F1S) * kLanes
-                 : planes;
-  R* scratch = kWS ? plane + t_lo * p.P * kLanes : planes;
-  // this group's items: forward tiles t_lo + g + k NG, then stage-1 rows
-  // r1_lo + g + k NG, then stage-2 tiles f2_lo + g + k NG
-  auto share = [&](int n) { return n > g ? (n - g + NG - 1) / NG : 0; };
-  const int nf = share(nt), e1 = nf + share(n1), e2 = e1 + share(n2);
+  // the chunk sums, then scratch2: the step's plane of the workspace
+  R* scratch = ws + i * (p.T * p.P + p.F1S) * kLanes;
+  R* scratch2 = scratch + p.T * p.P * kLanes;
+  // this group's items: forward tiles g + k G, then stage-1 rows g + k G,
+  // then stage-2 tiles g + k G (G = kGroups)
+  auto share = [&](int n) {
+    return n > g ? (n - g + kGroups - 1) / kGroups : 0;
+  };
+  const int nf = share(p.T), e1 = nf + share(cnt1), e2 = e1 + share(cnt2);
 
   auto issue = [&](int q) {
     const int slot = q % ring;
@@ -320,30 +264,28 @@ fused_spmv_kernel(const FusedPlan p, const R* __restrict__ x, int n_x,
     const int8_t* si1;
     const int8_t* srt;
     if (q < nf) {
-      const long long tile = i * p.T + t_lo + g + (long long)q * NG;
+      const long long tile = i * p.T + g + (long long)q * kGroups;
       prefetch_l2(static_cast<const R*>(p.values) + tile * kSlots,
                   kSlots * sizeof(R));
-      bar_expect(bar, 2 * kSlots);
       si1 = p.meta_i1 + tile * kSlots;
       srt = p.meta_rt + tile * kSlots;
     } else if (q < e1) {
       const long long off =
-          (i * p.F1A + r1_lo + g + (long long)(q - nf) * NG) * kSlots;
-      bar_expect(bar, 2 * kSlots);
+          (i * p.F1A + g + (long long)(q - nf) * kGroups) * kSlots;
       si1 = p.fin1_i1 + off;
       srt = p.fin1_rt + off;
     } else {
       const long long off =
-          (i * p.F2A + f2_lo + g + (long long)(q - e1) * NG) * kSlots;
-      bar_expect(bar, 2 * kSlots);
+          (i * p.F2A + g + (long long)(q - e1) * kGroups) * kSlots;
       si1 = p.fin2_i1 + off;
       srt = p.fin2_rt + off;
     }
+    bar_expect(bar, 2 * kSlots);
     bulk_copy(mi1, si1, kSlots, bar);
     bulk_copy(mi1 + kSlots, srt, kSlots, bar);
   };
 
-  if (tid < nt) tb[tid] = kChunk * p.tile_base[i * p.T + t_lo + tid];
+  if (tid < p.T) tb[tid] = kChunk * p.tile_base[i * p.T + tid];
   if (lead)
     for (int s = 0; s < ring; ++s) bar_init(bars + s);
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -362,18 +304,18 @@ fused_spmv_kernel(const FusedPlan p, const R* __restrict__ x, int n_x,
     if (lead && q + ring < e2) issue(q + ring);
   };
 
-  // ---- forward: this rank's tiles -> per-chunk sums
+  // ---- forward: the step's tiles -> per-chunk sums
   for (int q = 0; q < nf; ++q) {
-    const int tl = g + q * NG;                  // the tile, local
+    const int t = g + q * kGroups;
     // this lane's values, from the L2 (prefetched with the tile's
     // metadata), in flight while the group waits for the metadata
-    const R* vg = static_cast<const R*>(p.values) +
-                  (i * p.T + t_lo + tl) * kSlots + l;
+    const R* vg =
+        static_cast<const R*>(p.values) + (i * p.T + t) * kSlots + l;
     R v[kChunk];
 #pragma unroll
     for (int s = 0; s < kChunk; ++s) v[s] = load_once(vg + s * kLanes);
     consume(q, [&](const int8_t* i1, const int8_t* rt) {
-      const int xrow = tb[tl];
+      const int xrow = tb[t];
       R sum = 0;
 #pragma unroll
       for (int s = 0; s < kChunk; ++s) {
@@ -383,73 +325,46 @@ fused_spmv_kernel(const FusedPlan p, const R* __restrict__ x, int n_x,
         const R xv = (unsigned)xi < (unsigned)n_x ? x[xi] : R(0);
         sum += v[s] * xv;
         if ((s + 1) % Q == 0) {
-          scratch[(tl * p.P + s / Q) * kLanes + l] = sum;
+          scratch[(t * p.P + s / Q) * kLanes + l] = sum;
           sum = 0;
         }
       }
     });
   }
 
-  R* scratch2 = kWS ? plane + p.T * p.P * kLanes : planes + L.SRl * kLanes;
-  const int s2_base = kWS ? r1_lo : 0;          // row r1_lo's local index
   if (!p.fin_direct) {
     // rows stage 1 does not write are never addressed by a valid pack;
     // keep them defined all the same
-    for (int k = tid; k < (S2h - n1) * kLanes; k += NT)
-      scratch2[(s2_base + n1) * kLanes + k] = 0;
+    for (int k = tid; k < (p.F1S - cnt1) * kLanes; k += kThreads)
+      scratch2[cnt1 * kLanes + k] = 0;
   }
-  step_sync<CS>();
-
-  // the pair's chunk sums and scratch2 planes (distributed shared memory)
-  const R* scr_of[CS];
-  const R* s2_of[CS];
-#pragma unroll
-  for (int r = 0; r < CS; ++r) {
-    if constexpr (CS == 1 || kWS) {
-      scr_of[r] = plane;
-      s2_of[r] = scratch2;
-    } else {
-      cg::cluster_group cluster = cg::this_cluster();
-      scr_of[r] = r == rank ? scratch : cluster.map_shared_rank(scratch, r);
-      s2_of[r] = r == rank ? scratch2 : cluster.map_shared_rank(scratch2, r);
-    }
-  }
-  // the value of source row `row` (rows per rank: `per`), lane j
-  auto src_at = [&](const R* const* of, int row, int per, int j) -> R {
-    if constexpr (CS == 1 || kWS) {
-      return of[0][row * kLanes + j];
-    } else {
-      const int owner = row >= per;
-      return of[owner][(row - owner * per) * kLanes + j];
-    }
-  };
+  __syncthreads();
 
   // ---- finish stage 1: each row's chunk sums -> one partial in scratch2
   if (!p.fin_direct) {
     const int SG = p.T * p.P / kChunk;
     for (int q = nf; q < e1; ++q) {
-      const int fl = g + (q - nf) * NG;         // the row, local
+      const int f = g + (q - nf) * kGroups;
       consume(q, [&](const int8_t* i1, const int8_t* rt) {
         R sum = 0;
 #pragma unroll
         for (int s = 0; s < kChunk; ++s) {
           const int j = rt[s * kLanes + l] & 127;
           const int c = i1[s * kLanes + j];
-          if (c >= 0) sum += src_at(scr_of, cell(c, SG), L.SRl, j);
+          if (c >= 0) sum += scratch[cell(c, SG) * kLanes + j];
         }
-        scratch2[(s2_base + fl) * kLanes + l] = sum;
+        scratch2[f * kLanes + l] = sum;
       });
     }
-    step_sync<CS>();
+    __syncthreads();
   }
 
   // ---- finish stage 2: partials -> aligned (8, 128) groups of the slab
-  const R* const* src = p.fin_direct ? scr_of : s2_of;
-  const int per = p.fin_direct ? L.SRl : (kWS ? p.F1S : S2h);
+  const R* src = p.fin_direct ? scratch : scratch2;
   const int S2G = (p.fin_direct ? p.T * p.P : p.F1S) / kChunk;
   R* block = out + (long long)p.step_slab[i] * p.OBp * kLanes;
   for (int q = e1; q < e2; ++q) {
-    const int f = f2_lo + g + (q - e1) * NG;
+    const int f = g + (q - e1) * kGroups;
     const int grp = p.fin2_group[i * p.F2_max + f];
     consume(q, [&](const int8_t* i1, const int8_t* rt) {
 #pragma unroll
@@ -458,110 +373,58 @@ fused_spmv_kernel(const FusedPlan p, const R* __restrict__ x, int n_x,
         const int c = i1[s * kLanes + j];
         if (c >= 0)
           atomicAdd(&block[(grp * kChunk + s) * kLanes + l],
-                    src_at(src, cell(c, S2G), per, j));
+                    src[cell(c, S2G) * kLanes + j]);
       }
     });
   }
-  // a block's shared memory outlives its pair's reads of it
-  if constexpr (CS > 1) cg::this_cluster().sync();
-}
-
-template <typename R, int CS, bool kWS>
-cudaError_t launch_form(const FusedPlan& p, const void* x, int n_x,
-                        void* out, cudaStream_t stream, bool prepare) {
-  constexpr int NT = 1024 / CS;
-  const Layout L = layout_of(sizeof(R), NT, CS, p.ring, p.T, p.P, p.F1S,
-                             p.fin_direct, kWS);
-  auto kernel = fused_spmv_kernel<R, CS, kWS>;
-  if (prepare) {
-    // the least shared memory carve-out that holds the blocks an SM runs
-    // (CS of them, their 1 KB reserve each): the rest of the SM's 256 KB
-    // stays L1 for the x window
-    const size_t need = (CS * (L.total + 1024) * 100 + 232447) / 232448;
-    const int pct = need > 100 ? 100 : (int)need;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.total);
-    if (err != cudaSuccess) return err;
-    return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, pct);
-  }
-  const int spill_blocks = (p.n_spills + NT - 1) / NT;
-  const int grid = p.n_steps * CS + (spill_blocks + CS - 1) / CS * CS;
-  if (grid == 0) return cudaSuccess;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(grid);
-  cfg.blockDim = dim3(NT);
-  cfg.dynamicSmemBytes = L.total;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = CS;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = CS > 1 ? 1 : 0;
-  return cudaLaunchKernelEx(&cfg, kernel, p, static_cast<const R*>(x), n_x,
-                            static_cast<R*>(out));
 }
 
 template <typename R>
-cudaError_t dispatch(const FusedPlan& p, const void* x, int n_x, void* out,
-                     cudaStream_t stream, bool prepare) {
-  const bool ws = p.workspace != nullptr;
-  if (p.cluster == 2)
-    return ws ? launch_form<R, 2, true>(p, x, n_x, out, stream, prepare)
-              : launch_form<R, 2, false>(p, x, n_x, out, stream, prepare);
-  return ws ? launch_form<R, 1, true>(p, x, n_x, out, stream, prepare)
-            : launch_form<R, 1, false>(p, x, n_x, out, stream, prepare);
+cudaError_t prepare() {
+  // the least shared memory carve-out that holds the block and its 1 KB
+  // reserve: the rest of the SM's 256 KB stays L1 for the x window
+  const size_t need = ((Layout<R>::total + 1024) * 100 + 232447) / 232448;
+  return cudaFuncSetAttribute(fused_spmv_kernel<R>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)need);
 }
 
-cudaError_t checked(const FusedPlan* p) {
-  if ((p->cluster != 1 && p->cluster != 2) || p->ring < 1 ||
-      p->ring > kMaxRing || p->T < 1 || p->T > kLanes)
-    return cudaErrorInvalidValue;
-  return cudaSuccess;
+template <typename R>
+cudaError_t launch(const FusedPlan& p, const void* x, int n_x, void* out,
+                   void* ws, cudaStream_t stream) {
+  const int grid = p.n_steps + (p.n_spills + kThreads - 1) / kThreads;
+  if (grid == 0) return cudaSuccess;
+  fused_spmv_kernel<R><<<grid, kThreads, Layout<R>::total, stream>>>(
+      p, static_cast<const R*>(x), n_x, static_cast<R*>(out),
+      static_cast<R*>(ws));
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// Shared memory bytes a block of this form takes (0 for a form that does
-// not exist); the wrapper picks the ring depth and the scratch2 placement
-// by it.
-extern "C" long long fused_spmv_smem_bytes(int f64, int cluster, int ring,
-                                           int T, int P, int F1S,
-                                           int fin_direct, int workspace) {
-  if ((cluster != 1 && cluster != 2) || ring < 1 || ring > kMaxRing) return 0;
-  return (long long)layout_of(f64 ? 8 : 4, 1024 / cluster, cluster, ring, T,
-                              P, F1S, fin_direct, workspace != 0)
-      .total;
-}
-
-// Once a plan: opt the plan's form in to its shared memory.
+// Once a plan: set the kernel's shared memory carve-out.
 extern "C" int fused_spmv_prepare(const FusedPlan* plan) {
-  cudaError_t err = checked(plan);
-  if (err != cudaSuccess) return (int)err;
-  return (int)(plan->f64
-                   ? dispatch<double>(*plan, nullptr, 0, nullptr, 0, true)
-                   : dispatch<float>(*plan, nullptr, 0, nullptr, 0, true));
+  if (plan->T < 1 || plan->T > kLanes) return (int)cudaErrorInvalidValue;
+  return (int)(plan->f64 ? prepare<double>() : prepare<float>());
 }
 
 // A call: zero the n_out slab blocks and launch one kernel, on `stream` of
-// the plan's device.  x holds n_x elements (float, or double for f64).
+// the plan's device.  x holds n_x elements (float, or double for f64); ws,
+// this call's own, n_steps * (T*P + F1S) * 128 elements of the same type.
 extern "C" int fused_spmv_run(const FusedPlan* plan, const void* x,
-                              long long n_x, void* out, void* stream) {
-  cudaError_t err = checked(plan);
-  if (err != cudaSuccess || n_x < 0 || n_x > INT32_MAX)
-    return (int)(err != cudaSuccess ? err : cudaErrorInvalidValue);
+                              long long n_x, void* out, void* ws,
+                              void* stream) {
+  if (plan->T < 1 || plan->T > kLanes || n_x < 0 || n_x > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
   int current = 0;
   cudaGetDevice(&current);
   if (current != plan->device) cudaSetDevice(plan->device);
   const cudaStream_t st = (cudaStream_t)stream;
-  err = cudaMemsetAsync(out, 0,
-                        (size_t)plan->n_out * (plan->f64 ? 8 : 4), st);
+  cudaError_t err = cudaMemsetAsync(
+      out, 0, (size_t)plan->n_out * (plan->f64 ? 8 : 4), st);
   if (err == cudaSuccess)
-    err = plan->f64 ? dispatch<double>(*plan, x, (int)n_x, out, st, false)
-                    : dispatch<float>(*plan, x, (int)n_x, out, st, false);
-  if (err == cudaSuccess) err = cudaGetLastError();
+    err = plan->f64 ? launch<double>(*plan, x, (int)n_x, out, ws, st)
+                    : launch<float>(*plan, x, (int)n_x, out, ws, st);
   if (current != plan->device) cudaSetDevice(current);
   return (int)err;
 }

@@ -116,12 +116,10 @@ def library() -> _Library:
     lib = ctypes.CDLL(path)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # the fused SpMV: a plan (``spmv_fused._Plan``) built once, then a call
-    lib.fused_spmv_smem_bytes.restype = ll
-    lib.fused_spmv_smem_bytes.argtypes = [i] * 8
     lib.fused_spmv_prepare.restype = i
     lib.fused_spmv_prepare.argtypes = [p]
     lib.fused_spmv_run.restype = i
-    lib.fused_spmv_run.argtypes = [p, p, ll, p, p]
+    lib.fused_spmv_run.argtypes = [p, p, ll, p, p, p]
     lib.gstream_spmv_launch.restype = i
     lib.gstream_spmv_launch.argtypes = [p, i] + [p] * 5 + [ll] + [i] * 4 \
         + [p]

@@ -22,7 +22,6 @@ native FP64 (the f32 wrapper hands it f64 inputs); its plain version is
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -75,7 +74,11 @@ def _check_inputs(t: dict, x2: torch.Tensor, *, T, GLW, P, F1_max, F2_max,
                              f"on {dev}, got {a.dtype} on {a.device}")
     n_steps = t["tile_base"].shape[0]
     rows = n_steps * T * CHUNK
-    if P not in (1, 2, 4, 8) or T * P > 128 or GLW & (GLW - 1):
+    # the cell decode masks a chunk-sum row's group to a power of two
+    # (T*P/8 groups), as the TPU kernel's select tree does
+    SR = T * P
+    if P not in (1, 2, 4, 8) or SR < CHUNK or SR > 128 or SR & (SR - 1) \
+            or GLW & (GLW - 1):
         raise ValueError(f"unsupported layout T={T} P={P} GLW={GLW}")
     if F1S < F1_max or F1S % CHUNK:
         raise ValueError(f"F1S={F1S} does not hold F1_max={F1_max}")
@@ -229,33 +232,18 @@ def fused_spmv_reference(values, meta_i1, meta_rt, tile_base, fin1_i1,
 
 # -- the kernel's launch: a plan built once, then a call ----------------------
 
-class Form(NamedTuple):
-    """A launch form of the kernel: blocks a step (1, or a cluster of 2
-    sharing a step's 1024 threads), ring depth in tiles a group of 128
-    threads, and the scratch planes in a global workspace (else in shared
-    memory)."""
-    cluster: int
-    ring: int
-    workspace: bool
-
-
-# the kernel's form a real type, fixed by the measurement in PERF.md
-# section 6 (the cluster A/B, the ring sweep and the scratch placement at
-# the headline, NVIDIA H100 80GB HBM3)
-FORM = {torch.float32: Form(1, 2, True), torch.float64: Form(1, 1, True)}
 # the streams the Tensor Memory Accelerator copies (the metadata) or
 # prefetches (the values): their addresses must be multiples of 16 B
 _STAGED = ("values", "meta_i1", "meta_rt", "fin1_i1", "fin1_rt", "fin2_i1",
            "fin2_rt")
 _PLAN_INTS = ("n_steps", "T", "GLW", "P", "F1_max", "F2_max", "F1A", "F2A",
-              "F1S", "OBp", "fin_direct", "n_spills", "ring", "cluster",
-              "f64", "device")
+              "F1S", "OBp", "fin_direct", "n_spills", "f64", "device")
 
 
 _PLAN_POINTERS = ("values", "meta_i1", "meta_rt", "tile_base", "fin1_i1",
                   "fin1_rt", "fin2_i1", "fin2_rt", "fin2_group", "step_slab",
                   "fin1_cnt", "fin2_cnt", "spill_pos", "spill_col",
-                  "spill_val", "workspace")
+                  "spill_val")
 
 
 class _Plan(ctypes.Structure):
@@ -265,46 +253,11 @@ class _Plan(ctypes.Structure):
                 + [(name, ctypes.c_int) for name in _PLAN_INTS])
 
 
-def kernel_form(f64: bool, T: int, P: int, F1S: int, fin_direct: int,
-                device: torch.device, *, ring=None, cluster=None,
-                workspace=None) -> Form:
-    """The kernel's ``Form`` for a layout on a CUDA device: ``FORM``'s for
-    the real type, each field replaced where given, with the deepest ring
-    up to that depth that the opt-in shared memory holds."""
-    lib = library().lib
-    f = FORM[torch.float64 if f64 else torch.float32]
-    f = Form(cluster or f.cluster, ring or f.ring,
-             f.workspace if workspace is None else bool(workspace))
-    _, optin = card_limits(device)
-    for r in range(f.ring, 0, -1):
-        need = lib.fused_spmv_smem_bytes(int(f64), f.cluster, r, T, P, F1S,
-                                         fin_direct, int(f.workspace))
-        if 0 < need <= optin:
-            return f._replace(ring=r)
-    raise ValueError(f"fused_spmv: no ring fits the {optin} B of shared "
-                     f"memory a block may use (T={T} P={P} F1S={F1S})")
-
-
-def f64_scratch_fits(T: int, P: int, F1S: int, fin_direct: int,
-                     device: torch.device) -> bool:
-    """True when the f64 kernel's scratch planes, the chunk sums and
-    scratch2, fit a block's opt-in shared memory of ``device`` beside a
-    ring of one tile.  The devices keep them in a global workspace all the
-    same (``FORM``: faster on the card, the L1 left to the x gathers)."""
-    try:
-        kernel_form(True, T, P, F1S, fin_direct, device, ring=1,
-                    workspace=False)
-    except ValueError:
-        return False
-    return True
-
-
-def _plan(t: dict, dims: dict, *, form: Form, n_out: int,
-          workspace=None, counts=None, spills=None) -> _Plan:
+def _plan(t: dict, dims: dict, *, n_out: int, counts=None,
+          spills=None) -> _Plan:
     """A prepared plan over the CUDA tensors ``t`` (by name) and layout
-    ``dims``: ``form`` (its workspace, a tensor, passed as ``workspace``),
-    the live counts (fin1_cnt, fin2_cnt) or None (F1_max/F2_max), the
-    spills (flat positions, columns, values) or None.  The tensors must
+    ``dims``: the live counts (fin1_cnt, fin2_cnt) or None (F1_max/F2_max),
+    the spills (flat positions, columns, values) or None.  The tensors must
     outlive the plan."""
     for name in _STAGED:
         if t[name].data_ptr() % 16:
@@ -319,12 +272,9 @@ def _plan(t: dict, dims: dict, *, form: Form, n_out: int,
         p.spill_pos, p.spill_col, p.spill_val = (
             a.data_ptr() for a in spills)
         p.n_spills = spills[0].numel()
-    if workspace is not None:
-        p.workspace = workspace.data_ptr()
     for name, value in dims.items():
         setattr(p, name, value)
     p.n_out = n_out
-    p.cluster, p.ring = form.cluster, form.ring
     p.f64 = int(t["values"].dtype == torch.float64)
     p.device = t["values"].device.index
     lib = library().lib
@@ -334,37 +284,33 @@ def _plan(t: dict, dims: dict, *, form: Form, n_out: int,
 
 
 def _run(p: _Plan, x: torch.Tensor, out: torch.Tensor) -> None:
-    """One call of a plan: zero ``out`` and launch the kernel on x, on the
-    current stream of x's device."""
+    """One call of a plan on the current stream of x's device: a
+    workspace of this call's own (the chunk sums and scratch2 of every
+    step; the caching allocator orders it on the stream), ``out`` zeroed
+    and the kernel launched on x."""
     lib = library().lib
+    ws = torch.empty(p.n_steps * (p.T * p.P + p.F1S) * LANES,
+                     dtype=out.dtype, device=out.device)
     check(lib, lib.fused_spmv_run(
         ctypes.addressof(p), x.data_ptr(), x.numel(), out.data_ptr(),
-        torch.cuda.current_stream(x.device).cuda_stream), "fused_spmv launch")
+        ws.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream),
+        "fused_spmv launch")
 
 
-def _launch_free(t: dict, x2: torch.Tensor, *, workspace, T, GLW, P,
-                 F1_max, F2_max, F1S, OBp, n_slabs,
-                 fin_direct) -> torch.Tensor:
+def _launch_free(t: dict, x2: torch.Tensor, *, T, GLW, P, F1_max, F2_max,
+                 F1S, OBp, n_slabs, fin_direct) -> torch.Tensor:
     """Check the free wrappers' CUDA inputs, plan and launch the kernel
     once: no live counts (every step to F1_max/F2_max), no spills, x2
-    padded.  ``workspace``: the scratch planes in a global workspace, or
-    None for ``FORM``'s placement."""
+    padded."""
     n_steps, F1A, F2A = _check_inputs(t, x2, T=T, GLW=GLW, P=P,
                                       F1_max=F1_max, F2_max=F2_max, F1S=F1S)
-    f64 = x2.dtype == torch.float64
-    form = kernel_form(f64, T, P, F1S, fin_direct, x2.device,
-                       workspace=workspace)
     with torch.cuda.device(x2.device):
         out = torch.empty(n_slabs * OBp, LANES, dtype=x2.dtype,
                           device=x2.device)
-        wbuf = (torch.empty(max(n_steps, 1) * (T * P + F1S) * LANES,
-                            dtype=x2.dtype, device=x2.device)
-                if form.workspace else None)
         dims = dict(n_steps=n_steps, T=T, GLW=GLW, P=P, F1_max=F1_max,
                     F2_max=F2_max, F1A=F1A, F2A=F2A, F1S=F1S, OBp=OBp,
                     fin_direct=fin_direct)
-        _run(_plan(t, dims, form=form, n_out=out.numel(), workspace=wbuf),
-             x2, out)
+        _run(_plan(t, dims, n_out=out.numel()), x2, out)
     return out
 
 
@@ -389,25 +335,12 @@ def fused_spmv(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
         return fused_spmv_reference(*args, **kw)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_spmv: unsupported device {x2.device}")
-    out = _launch_free(_named(*args[:-1]), x2, workspace=None, **kw)
+    out = _launch_free(_named(*args[:-1]), x2, **kw)
     fused_spmv.launches += 1
     return out
 
 
 fused_spmv.launches = 0
-
-
-def _fused_spmv_f64_launch(t: dict, x2: torch.Tensor, *, workspace: bool,
-                           T, GLW, P, F1_max, F2_max, F1S, OBp, n_slabs,
-                           fin_direct) -> torch.Tensor:
-    """Launch the f64 kernel on f64 CUDA inputs ``t`` (by name) and x2,
-    with the scratch planes in a global workspace when ``workspace`` (in
-    shared memory when False; None: ``FORM``'s placement)."""
-    out = _launch_free(t, x2, workspace=workspace, T=T, GLW=GLW, P=P,
-                       F1_max=F1_max, F2_max=F2_max, F1S=F1S, OBp=OBp,
-                       n_slabs=n_slabs, fin_direct=fin_direct)
-    fused_spmv_f64.launches += 1
-    return out
 
 
 def fused_spmv_f64(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
@@ -417,9 +350,9 @@ def fused_spmv_f64(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
     """The fused kernel in native FP64: slab blocks (n_slabs*OBp, 128) f64
     of y = A @ x, for f64 values and x2.
 
-    On CUDA tensors it launches the f64 form of ``csrc/fused_spmv.cu`` (or
-    raises) in ``FORM``'s form, the scratch planes in a global workspace;
-    on CPU tensors it runs ``fused_spmv_reference``.
+    On CUDA tensors it checks its inputs, plans and launches the f64 form
+    of ``csrc/fused_spmv.cu`` on the current stream (or raises); on CPU
+    tensors it runs ``fused_spmv_reference``.
     ``fused_spmv_f64.launches`` counts kernel launches, the devices'
     too."""
     kw = dict(T=T, GLW=GLW, P=P, F1_max=F1_max, F2_max=F2_max, F1S=F1S,
@@ -432,9 +365,11 @@ def fused_spmv_f64(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
                                     fin2_group, step_slab, x2, **kw)
     if x2.device.type != "cuda":
         raise ValueError(f"fused_spmv_f64: unsupported device {x2.device}")
-    t = _named(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
-               fin2_i1, fin2_rt, fin2_group, step_slab)
-    return _fused_spmv_f64_launch(t, x2, workspace=None, **kw)
+    out = _launch_free(_named(values, meta_i1, meta_rt, tile_base, fin1_i1,
+                              fin1_rt, fin2_i1, fin2_rt, fin2_group,
+                              step_slab), x2, **kw)
+    fused_spmv_f64.launches += 1
+    return out
 
 
 fused_spmv_f64.launches = 0
@@ -570,9 +505,9 @@ class FusedDevice(nn.Module):
     kernel launch.  Build it with ``FusedDevice.from_packed``.
 
     The buffers are checked once, here; on a card the kernel's launch plan
-    (every buffer's address, the layout, the form, the spills' flat
-    positions) is built once too, so a call checks only x, allocates y's
-    blocks and launches."""
+    (every buffer's address, the layout, the spills' flat positions) is
+    built once too, so a call checks only x, allocates y's blocks and the
+    kernel's workspace, and launches."""
 
     def __init__(self, meta, buffers: dict):
         super().__init__()
@@ -583,8 +518,7 @@ class FusedDevice(nn.Module):
             self.register_buffer(name, tensor)
         self._kernel = fused_spmv_f64 if self.dtype == torch.float64 \
             else fused_spmv
-        self._plan = self._workspace = self._form = None
-        self._dims = None
+        self._plan = self._dims = None
         self._build_plan()
 
     @staticmethod
@@ -616,10 +550,8 @@ class FusedDevice(nn.Module):
             np.asarray(packed.values, np.float32),
             np.asarray(packed.spill_val, np.float32)))
 
-    def _build_plan(self, **form) -> None:
-        """Check the buffers and, on a card, build the launch plan in the
-        form ``FORM`` fixes (a measurement may replace its fields:
-        ``kernel_form``'s keywords)."""
+    def _build_plan(self) -> None:
+        """Check the buffers and, on a card, build the launch plan."""
         m = self.meta
         t = {name: getattr(self, name) for name, _ in _KERNEL_INPUTS}
         x2 = torch.empty(m.GX * CHUNK, LANES, dtype=self.dtype,
@@ -633,18 +565,9 @@ class FusedDevice(nn.Module):
                           fin_direct=m.fin_direct)
         if self.device.type != "cuda":
             return
-        f64 = self.dtype == torch.float64
-        f = kernel_form(f64, m.T, m.planes, m.F1S, m.fin_direct,
-                        self.device, **form)
-        self._workspace = (torch.empty(
-            max(n_steps, 1) * (m.T * m.planes + m.F1S) * LANES,
-            dtype=self.dtype, device=self.device) if f.workspace else None)
         spills = ((self.spill_pos, self.spill_col, self.spill_val)
                   if self.n_spills else None)
-        self._form = f
-        self._plan = _plan(t, self._dims, form=f,
-                           n_out=m.n_slabs * m.OBp * LANES,
-                           workspace=self._workspace,
+        self._plan = _plan(t, self._dims, n_out=m.n_slabs * m.OBp * LANES,
                            counts=(self.fin1_cnt, self.fin2_cnt),
                            spills=spills)
 
@@ -661,11 +584,6 @@ class FusedDevice(nn.Module):
     @property
     def dtype(self) -> torch.dtype:
         return self.values.dtype
-
-    @property
-    def form(self):
-        """The ``Form`` of the kernel's launch plan; None on the CPU."""
-        return self._form
 
     def prepare_x(self, x) -> torch.Tensor:
         """x (nr_cols,) -> the resident layout (GX*8, 128) in the values'
@@ -852,10 +770,7 @@ class DF64FusedDevice(FusedDevice):
     value plane, x stays float64, and the kernel (``fused_spmv_f64``)
     computes in native FP64.  ``spmv`` returns a float64 y; the spills are
     added by the kernel, every one (the JAX device's ``set`` keeps one
-    spill per row: ROADMAP Queue 3).  When the opt-in shared memory cannot
-    hold scratch2 beside the chunk sums and the ring, the device owns a
-    global workspace for it (calls on one stream share it).  Build it with
-    ``from_packed``."""
+    spill per row: ROADMAP Queue 3).  Build it with ``from_packed``."""
 
     @classmethod
     def from_packed(cls, packed_hi, packed_lo, device) -> "DF64FusedDevice":

@@ -83,22 +83,26 @@ def test_fused_f64_kernel_matches_plain_on_card(cuda, case):
 @pytest.mark.parametrize("case", ["q1_two_stage_sgrp2", "q4",
                                   "q8_spills_nonuniform_slabs"])
 def test_fused_f64_workspace_placement_on_card(cuda, case):
-    """scratch2 in the global workspace (where the opt-in shared memory
-    cannot hold both f64 scratch planes) gives the plain version's blocks."""
+    """The chunk sums and scratch2 in a global workspace of each call's
+    own: calls on two streams at once, and the free wrapper, give the
+    plain version's blocks."""
     m, d = _fused(case, cuda)
-    p = d.meta
-    assert not p.fin_direct
-    x2 = d.prepare_x(np.random.default_rng(4).standard_normal(m.nr_cols))
-    t = {name: getattr(d, name) for name, _ in sf._KERNEL_INPUTS}
-    kw = dict(T=p.T, GLW=p.GLW, P=p.planes, F1_max=p.F1_max,
-              F2_max=p.F2_max, F1S=p.F1S, OBp=p.OBp, n_slabs=p.n_slabs,
-              fin_direct=p.fin_direct)
-    yw = sf._fused_spmv_f64_launch(t, x2, workspace=True, **kw)
-    ys = sf._fused_spmv_f64_launch(t, x2, workspace=False, **kw)
+    assert not d.meta.fin_direct
+    xs = [torch.as_tensor(np.random.default_rng(4 + k).standard_normal(
+        m.nr_cols), device=cuda) for k in range(2)]
+    refs = [d.spmv_blocks_reference(x) for x in xs]
+    streams = [torch.cuda.Stream() for _ in xs]
     torch.cuda.synchronize()
-    ref = d.blocks(x2, kernel=sf.fused_spmv_reference)
-    _agree(yw, ref)
-    _agree(ys, ref)
+    ys = []
+    for _ in range(3):
+        for x, st_ in zip(xs, streams):
+            with torch.cuda.stream(st_):
+                ys.append((d.spmv_blocks(x), st_))
+    torch.cuda.synchronize()
+    for k, (y, _) in enumerate(ys):
+        _agree(y, refs[k % 2])
+    x2 = d.prepare_x(xs[0].cpu().numpy())
+    _agree(d.blocks(x2), d.blocks(x2, kernel=sf.fused_spmv_reference))
 
 
 def _classic_cases():
@@ -199,26 +203,21 @@ def test_sparse_matrix_f64_on_card_matches_gold(cuda, block_cols):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("case", list(REGIMES))
-def test_fused_f64_device_forms_on_card(cuda, case):
+@pytest.mark.parametrize("case", list(REGIMES) + list(_tf.RING_EDGES))
+def test_fused_f64_device_call_matches_plain_on_card(cuda, case):
     """The f64 device's one launch (live counts, spills, unpadded x)
-    against its plain version in every form the card holds (one block or
-    a pair a step, rings of 1-3, the scratch planes in shared memory or the
-    workspace); the default plan keeps them in the workspace."""
-    m, d = _fused(case, cuda)
-    assert d.form == sf.kernel_form(True, d.meta.T, d.meta.planes,
-                                    d.meta.F1S, d.meta.fin_direct, cuda)
-    assert d.form.workspace
+    against its plain version; one launch a call."""
+    make, kw, regime = {**REGIMES, **_tf.RING_EDGES}[case]
+    m = make()
+    ph, pl = sf.pack_fused_df64(m, **kw)
+    assert regime(ph), case
+    d = sf.DF64FusedDevice.from_packed(ph, pl, cuda)
     x = torch.as_tensor(np.random.default_rng(5).standard_normal(m.nr_cols),
                         device=cuda)
     ref = d.spmv_blocks_reference(x)
-    forms = _tf._forms(d)
-    assert len(forms) >= 4, forms
-    for f in forms:
-        d._build_plan(**f._asdict())
-        before = sf.fused_spmv_f64.launches
-        yk = d.spmv_blocks(x)
-        torch.cuda.synchronize()
-        assert sf.fused_spmv_f64.launches == before + 1
-        _agree(yk, ref)
+    before = sf.fused_spmv_f64.launches
+    yk = d.spmv_blocks(x)
+    torch.cuda.synchronize()
+    assert sf.fused_spmv_f64.launches == before + 1
+    _agree(yk, ref)
     _gold_ok(m, x.cpu().numpy(), d.spmv(x))

@@ -3,10 +3,11 @@ counts, the spills at their flat positions in the slab blocks, x unpadded.
 
 ``FusedDevice.spmv`` (f32) and ``DF64FusedDevice.spmv`` (f64) run, on CPU
 tensors, ``spmv_blocks_reference``: the plain version of the card's one
-launch.  Each regime of ``test_torch_fused.REGIMES`` holds it to the old
-formulation of the call, the free wrapper's plain version on the padded x
-(``fused_spmv_reference``), y's rows read back (``_rows``) and the spills
-added by row with ``index_add_``.  Tolerances: rtol 1e-5, atol 1e-5 *
+launch.  Each regime of ``test_torch_fused.REGIMES`` and each of its
+``RING_EDGES`` holds it to the old formulation of the call, the free
+wrapper's plain version on the padded x (``fused_spmv_reference``), y's
+rows read back (``_rows``) and the spills added by row with
+``index_add_``.  Tolerances: rtol 1e-5, atol 1e-5 *
 max(1, max|y|) in f32; 1e-12 in f64 (the same terms, summed in another
 order at most).  No JAX run here: ``test_torch_fused.py`` and
 ``test_torch_f64.py`` hold the devices to the JAX package.
@@ -20,14 +21,16 @@ import torch
 
 from sparsetpu_torch import _host
 from sparsetpu_torch.kernels import spmv_fused as sf
-from test_torch_fused import REGIMES, native_engines_first  # noqa: F401
+from test_torch_fused import (RING_EDGES, REGIMES,  # noqa: F401
+                              native_engines_first)
 
 REL = {torch.float32: 1e-5, torch.float64: 1e-12}
 
 
 def _device(case, dtype):
-    """(matrix, device on the CPU) of a regime, f32 or f64."""
-    make, kw, regime = REGIMES[case]
+    """(matrix, device on the CPU) of a regime or a ring edge, f32 or
+    f64."""
+    make, kw, regime = {**REGIMES, **RING_EDGES}[case]
     m = make()
     if dtype == torch.float32:
         p = _host.pack_fused(m, **kw)
@@ -60,7 +63,7 @@ def _close(y, ref):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("case", list(REGIMES))
+@pytest.mark.parametrize("case", list(REGIMES) + list(RING_EDGES))
 def test_device_call_matches_old_formulation(case, dtype):
     m, d = _device(case, dtype)
     x = np.random.default_rng(9).standard_normal(m.nr_cols)
@@ -99,6 +102,18 @@ def test_from_packed_rejects_counts_outside_their_range(name, delta):
     with pytest.raises(ValueError, match=name):
         sf.FusedDevice.from_packed(
             dataclasses.replace(p, **{name: c[:-1]}), "cpu")
+
+
+@pytest.mark.parametrize("T", [1, 24])
+def test_from_packed_rejects_layouts_the_cell_decode_cannot_address(T):
+    """T*P chunk-sum rows must be 8 times a power of two: the cells'
+    group bits are masked to T*P/8 groups, as on the TPU, so T*P = 1 or
+    24 would address rows no forward wrote."""
+    p = _host.pack_fused(_host.random_csr(2000, 5000, 0.002, seed=2), T=T,
+                         Q=8)
+    assert p is not None and p.T * p.planes == T
+    with pytest.raises(ValueError, match="unsupported layout"):
+        sf.FusedDevice.from_packed(p, "cpu")
 
 
 def test_live_counts_cut_the_finish():
