@@ -21,7 +21,8 @@ Builds the CUDA kernels and the native packer from this checkout, then:
                    final (the per-level grids, the spills, the adds);
   headline         the bench.py matrix (200k x 100k, 50 nnz/row, ~10M nnz):
                    the fused main path, one kernel and one memset a call
-                   (a one-call profiler trace; the run fails otherwise);
+                   (a whole one-call profiler trace, every launch
+                   recorded; the run fails otherwise);
                    the device's launch a call and back to back beside the
                    free wrapper, held to its plain version (also in f64);
   wide x           a stand-in with the shape and nnz of SNAP/roadNet-CA
@@ -287,6 +288,62 @@ TILE_ARGS = ("tile_base", "xw", "values", "i1", "rt")
 # #1 back to back at the headline as PERF.md section 6 records it (NVIDIA
 # H100 80GB HBM3, 700 W): the stage split reads it again beside its phases
 FUSED_BACK_TO_BACK_REF_MS = 0.0528
+# a profiler trace: host seconds between its edges and the traced calls,
+# the spin kernels that bracket them, the tries at a whole one-call trace
+TRACE_PAD_S = (0.25, 1.0, 4.0)
+TRACE_MARKS = 4
+
+
+def traced(torch, fn, pads=TRACE_PAD_S):
+    """The device events of ``fn()`` from a profiler trace, the host us
+    ``fn`` took (through a synchronize), whether the device record is
+    whole, and ``fn``'s (kernel launches, memsets) from the trace's record
+    of the runtime API calls on the host.
+
+    The profiler drops device events near the start of its window: on
+    the card, a trace of one call recorded none of it late in a run, and
+    10-call traces 0.1-0.9 of each kernel, while its record of the host's
+    runtime calls (``cudaLaunchKernel``, ``cudaMemsetAsync``) stayed whole.
+    So the calls sit a pad's host seconds inside the window, between
+    ``TRACE_MARKS`` spin kernels on each side (``torch.cuda._sleep``); the
+    device record is whole when every marker was recorded, the leading
+    ones before all of ``fn``'s events and the trailing ones after.  Tries
+    ``pads`` in turn, returns the first whole trace, else the last."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for pad in pads:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(pad)
+            for _ in range(TRACE_MARKS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+            for _ in range(TRACE_MARKS):
+                torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            time.sleep(pad)
+        ev = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA),
+                    key=lambda e: e.time_range.start)
+        spin = [i for i, e in enumerate(ev) if "spin_kernel" in e.name]
+        n = len(ev)
+        whole = spin == [*range(TRACE_MARKS),
+                         *range(n - TRACE_MARKS, n)]
+        calls = [e for e in ev if "spin_kernel" not in e.name]
+        api = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CPU]
+        host = (sum("LaunchKernel" in a for a in api) - 2 * TRACE_MARKS,
+                sum("Memset" in a for a in api))
+        if whole:
+            break
+        print(f"  trace: {len(spin)} of {2 * TRACE_MARKS} markers (at "
+              f"{spin} of {n} events) with {pad} s of room, not whole",
+              flush=True)
+    return calls, wall_us, whole, host
 
 
 def _real(t) -> str:
@@ -1004,26 +1061,28 @@ class Smoke:
                     None if multi else {"back_to_back_ms": back["kernel"]})
 
     def launches_a_call(self, tag, fn):
-        """(kernel launches, memsets) on the card in one call of ``fn``,
-        from a profiler trace of that call alone (every launch recorded),
-        printed by name."""
-        torch = self.torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        """(kernel launches, memsets) in one call of ``fn``, from a
+        profiler trace of that call alone: the host's record of its
+        runtime calls, which holds every launch, beside the card's record,
+        printed by name where it is whole (``traced``); raises when the
+        two disagree."""
         if self.dev.type != "cuda":
             return None
         fn()
         self.sync()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        ev, _, whole, host = traced(self.torch, fn)
         memsets = sum("memset" in e.name.lower() for e in ev)
-        print(f"  launches [{tag}]: {len(ev) - memsets} kernel(s) and "
-              f"{memsets} memset(s) in one call: "
-              f"{sorted(e.name[:48] for e in ev)}", flush=True)
-        return len(ev) - memsets, memsets
+        dev = (len(ev) - memsets, memsets)
+        print(f"  launches [{tag}]: {host[0]} kernel launch(es) and "
+              f"{host[1]} memset(s) in one call (the host's API record); "
+              f"on the card "
+              + (f"{sorted(e.name[:48] for e in ev)}" if whole else
+                 f"no whole record in {len(TRACE_PAD_S)} tries"),
+              flush=True)
+        if whole and dev != host:
+            raise RuntimeError(f"launches [{tag}]: the card recorded {dev}, "
+                               f"the host's API {host}")
+        return host
 
     def csr(self, m):
         """The matrix as a torch CSR tensor on the device (cuSPARSE)."""
@@ -1066,34 +1125,32 @@ class Smoke:
 
     def profile(self, tag, fn, calls=10):
         """Device time by kernel over ``calls`` calls of ``fn`` (a
-        torch.profiler trace), and the share of the window the card was
-        busy.  Reporting only: a profiler that fails prints why."""
-        torch = self.torch
-        from torch.autograd import DeviceType
-        from torch.profiler import ProfilerActivity, profile
+        torch.profiler trace, ``traced``), and the share of the window the
+        card was busy.  Reporting only: a profiler that fails prints why."""
         if self.dev.type != "cuda":
             return
         try:
             fn()
             self.sync()
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                for _ in range(calls):
-                    fn()
-                torch.cuda.synchronize()
-                wall_us = (time.perf_counter() - t0) * 1e6
-            rows = sorted(((e.self_device_time_total / calls, e.count / calls,
-                            e.key) for e in prof.key_averages()
-                           if e.device_type == DeviceType.CUDA
-                           and e.self_device_time_total > 0), reverse=True)
+            ev, wall_us, whole, host = traced(
+                self.torch, lambda: [fn() for _ in range(calls)],
+                TRACE_PAD_S[:2])
         except Exception as e:          # noqa: BLE001
             print(f"  profile [{tag}]: not available ({e!r})", flush=True)
             return
+        by_name = {}
+        for e in ev:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+        rows = sorted(((us / calls, n / calls, name)
+                       for name, (us, n) in by_name.items()), reverse=True)
         busy = sum(r[0] for r in rows)
         print(f"  profile [{tag}]: {busy:.1f} us of device time a call, "
               f"busy {busy * calls / wall_us:.3f} of the window "
-              f"({calls} calls, host clock)", flush=True)
+              f"({calls} calls, host clock, "
+              f"{'whole' if whole else 'NOT whole'} trace); "
+              f"{host[0] / calls:g} launches and {host[1] / calls:g} "
+              f"memsets a call (the host's API record)", flush=True)
         for us, n, key in rows[:8]:
             print(f"    {us:9.1f} us  x{n:g}  {key[:90]}", flush=True)
 
