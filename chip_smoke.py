@@ -49,8 +49,12 @@ and Y = A @ X (SpMM) beside them:
                    on the F levels) and the k-plane final (the row-sorted
                    map on k planes) against their plain versions, Y
                    against ``spmm_gold``;
-  headline k = 8   the fused SpMM (``sm @ X``), against eight ``sm @ x``
-                   calls and cuSPARSE;
+  headline k = 8   the fused SpMM (``sm @ X``): one kernel and one memset
+                   a call (a whole one-call profiler trace), the device's
+                   launch (X unpadded, the spills in it) and the free
+                   wrapper held to their plain versions, beside the
+                   one-pass bound and the bytes of its gathers of X's
+                   rows; against eight ``sm @ x`` calls and cuSPARSE;
   headline k = 72  (the smallest multiple of 8 the fused SpMM rejects on
                    an H100): ``sm @ X`` on the lazily built classic
                    device, the k-plane forward and the k-plane final (flat
@@ -79,8 +83,11 @@ and f64 (DOUBLE=1, native FP64 kernels) beside them:
                    fused f64 device, and ``sm @ X`` at k = 4 (one fused f64
                    SpMV a column);
   wide x f64       the roadNet-CA stand-in with f64 values: ``sm @ x`` on
-                   the classic f64 device (forward and legacy final, with
-                   its spills), and ``sm @ X`` at k = 8 (the k-plane f64
+                   the classic f64 device (the forward over the live
+                   slots, held to its plain version and to the forward
+                   over the whole pack at every read position, beside its
+                   bound and the TPU layout's; the legacy final, with its
+                   spills), and ``sm @ X`` at k = 8 (the k-plane f64
                    forward, then the k-plane f64 final).
 
 Each f64 kernel is held to its plain version at rtol 1e-12, atol 1e-12 *
@@ -214,8 +221,8 @@ KERNELS = {
                      "sparsetpu/kernels/spmm.py:28"),
     "fused_spmv_f64": ("sparsetpu_torch/csrc/fused_spmv.cu",
                        "sparsetpu/kernels/spmv_fused.py:507"),
-    "gstream_spmv_window_f64": ("sparsetpu_torch/csrc/gstream_spmv.cu",
-                                "sparsetpu/kernels/f64emu.py:163"),
+    "live_slots_f64": ("sparsetpu_torch/csrc/gstream_spmv.cu",
+                       "sparsetpu/kernels/f64emu.py:163"),
     "gstream_spmm_f64": ("sparsetpu_torch/csrc/gstream_spmm.cu",
                          "sparsetpu/kernels/f64emu.py:319"),
     "bsr_partials": ("sparsetpu_torch/csrc/bsr_spmv.cu",
@@ -542,7 +549,7 @@ class Smoke:
         self.fused.fused_spmm.launches = 0
         self.sp.gstream_chunk_sums_multi.launches = 0
         self.fused.fused_spmv_f64.launches = 0
-        self.sg.gstream_chunk_sums_f64.launches = 0
+        self.sg.live_slot_sums.launches = 0
         self.fr.final_rows.launches.clear()
         self.fr.final_rows_multi.launches.clear()
         self.sp.gstream_chunk_sums_multi_f64.launches = 0
@@ -566,8 +573,7 @@ class Smoke:
                 "fused_spmm": self.fused.fused_spmm.launches,
                 "gstream_spmm": self.sp.gstream_chunk_sums_multi.launches,
                 "fused_spmv_f64": self.fused.fused_spmv_f64.launches,
-                "gstream_spmv_window_f64":
-                    self.sg.gstream_chunk_sums_f64.launches,
+                "live_slots_f64": self.sg.live_slot_sums.launches,
                 "gstream_spmm_f64":
                     self.sp.gstream_chunk_sums_multi_f64.launches,
                 "bsr_partials": self.bsr.bsr_partials.launches,
@@ -600,7 +606,7 @@ class Smoke:
         if d.dtype == self.torch.float64:
             if isinstance(d, self.fused.FusedDevice):
                 return {"fused_spmv_f64"}
-            return {"gstream_spmv_window_f64"} | (
+            return {"live_slots_f64"} | (
                 {"final_rows_f64"} if d.final is not None else set())
         if isinstance(d, self.fused.FusedDevice):
             return {"fused_spmv"}
@@ -725,8 +731,6 @@ class Smoke:
             return cr
         name = ("gstream_spmv_tile_base" if fwd.GL
                 else "gstream_spmv_window")
-        if x2.dtype == self.torch.float64:
-            name = "gstream_spmv_window_f64"
         ms = self.call_ms(lambda: fwd(x2))
         plain_ms = self.call_ms(lambda: fwd(x2, ref), repeats=10)
         rows, cols, vals, n_out = self._forward_incidence(fwd)
@@ -737,6 +741,56 @@ class Smoke:
         self.record(name, tag, err, ms, plain_ms, nb,
                     2 * fwd.values.numel(), lib_ms)
         return cr
+
+    def live_forward(self, d, x, tag, measure=True):
+        """The f64 device's forward over its live slots (``live_slot_sums``)
+        vs its plain version, and vs the TPU-form plain version (the whole
+        pack, ``gstream_chunk_sums_reference``) at every read position;
+        measured when ``measure``: beside its bound (the live map and x,
+        read once, the read positions written once) and the TPU layout's
+        bound, and cuSPARSE on the live incidence.  Returns the TPU-form
+        plain chunk sums (every position)."""
+        torch, sg = self.torch, self.sg
+        sl = d.slots
+        pos = sl.pos.long()
+        x = torch.as_tensor(x, dtype=torch.float64,
+                            device=self.dev).contiguous().view(-1)
+        ck = d.forward_live(x).reshape(-1)
+        cl = d.forward_live(x, sg.live_slot_sums_reference).reshape(-1)
+        x2 = d.prepare_x(x)
+        ct = d.stream(x2, sg.gstream_chunk_sums_reference)
+        self.sync()
+        err = _agree(ck[pos], cl[pos])
+        tpu_err = _agree(ck[pos], ct.reshape(-1)[pos])
+        if not measure:
+            return ct
+        ms = self.call_ms(lambda: d.forward_live(x))
+        plain_ms = self.call_ms(
+            lambda: d.forward_live(x, sg.live_slot_sums_reference),
+            repeats=10)
+        b2b = self.back_to_back(lambda: d.forward_live(x))
+        rows = torch.repeat_interleave(pos, sl.rowptr.diff().long(),
+                                       output_size=sl.n_live)
+        lib_ms = self.library_spmv(rows, sl.col.long(), sl.val,
+                                   (sl.n_positions, x.numel()), x, cl)
+        del rows
+        nb = _nbytes(sl.pos, sl.rowptr, sl.col, sl.val) + \
+            d.meta.nr_cols * 8 + sl.n_read * 8
+        fwd = d.stream
+        tpu_nb = _nbytes(fwd.values, fwd.meta16, fwd.step_window, x2, ct)
+        tpu_ms = tpu_nb / (self.hbm * 1e6)
+        self.record("live_slots_f64", tag, err, ms, plain_ms, nb,
+                    2 * sl.n_live, lib_ms,
+                    extra={"back_to_back_ms": b2b,
+                           "tpu_layout_bound_ms": tpu_ms})
+        print(f"  live_slots_f64 [{tag}]: {sl.n_read} read positions, "
+              f"{sl.n_live} live slots of {fwd.values.numel()} "
+              f"({sl.n_live / max(fwd.values.numel(), 1):.4f}), "
+              f"{ms:.4f} ms a call, {b2b:.4f} back to back | vs the "
+              f"TPU-form plain version at the read positions max abs "
+              f"{tpu_err:.3e} | the TPU layout's bound {tpu_nb} B, "
+              f"{tpu_ms:.4f} ms", flush=True)
+        return ct
 
     def forward_multi(self, fwd, X, tag, measure=True):
         """The k-plane forward kernel vs its plain version (X row-major
@@ -965,8 +1019,10 @@ class Smoke:
     def gstream(self, d, x, tag, measure=True):
         """Every kernel of one classic device vs its plain version."""
         sg = self.sg
-        x2 = d.prepare_x(x)
-        cr = self.forward(d.stream, x2, tag, measure)
+        if isinstance(d, self.f64.DF64GStreamDevice):
+            cr = self.live_forward(d, x, tag, measure)
+        else:
+            cr = self.forward(d.stream, d.prepare_x(x), tag, measure)
         # the F levels (the forward kernel on incidence packs) extend the
         # position vector: through the kernel and through the plain version
         vec = d.positions(cr, sg.gstream_chunk_sums_reference)
@@ -1004,32 +1060,39 @@ class Smoke:
         return pr
 
     def fused_kernel(self, dev, x, tag, lib_ms, multi=False):
-        """The fused SpMV (or, with ``multi``, SpMM on X row-major
-        (padded_cols, k)) kernel vs its plain version, timed in turns.  The
-        SpMV is the device's one launch (x prepared, the spills, the live
-        counts), beside its plain version ``spmv_blocks_reference``; the
-        free wrapper ``fused_spmv`` is held to ``fused_spmv_reference`` and
-        timed beside it."""
+        """The fused SpMV (or, with ``multi``, SpMM on X (nr_cols, k)) kernel
+        vs its plain version, timed in turns: the device's one launch (x
+        unpadded for the SpMM, prepared for the SpMV; the spills, the live
+        counts) beside its plain version (``spmv_blocks_reference``,
+        ``spmm_blocks_reference``); the free wrapper (``fused_spmv``,
+        ``fused_spmm``: no counts, no spills, x padded) is held to its
+        plain version and timed beside it."""
         fused = self.fused
         if multi:
             name, k = "fused_spmm", x.shape[1]
-            kern = lambda: dev.blocks_multi(x)                  # noqa: E731
-            plain = lambda: dev.blocks_multi(                   # noqa: E731
-                x, fused.fused_spmm_reference)
+            kern = lambda: dev.spmm_blocks(x)                   # noqa: E731
+            plain = lambda: dev.spmm_blocks_reference(x)        # noqa: E731
+            xf = dev.prepare_x_multi(x)
+            free = lambda: dev.blocks_multi(xf)                 # noqa: E731
+            free_ref = fused.fused_spmm_reference
         else:
             name, k = "fused_spmv", 1
             if dev.dtype == self.torch.float64:
                 name = "fused_spmv_f64"
             kern = lambda: dev.spmv_blocks(x, x_is_packed=True)  # noqa: E731
             plain = lambda: dev.spmv_blocks_reference(x)        # noqa: E731
-            yf, yfr = dev.blocks(x), dev.blocks(x, fused.fused_spmv_reference)
-            self.sync()
-            free = (self.call_ms(lambda: dev.blocks(x)),
-                    self.back_to_back(lambda: dev.blocks(x)))
-            print(f"  {name} [{tag}]: the free wrapper vs "
-                  f"fused_spmv_reference max abs {_agree(yf, yfr):.3e}, "
-                  f"{free[0]:.4f} ms a call, {free[1]:.4f} back to back",
-                  flush=True)
+            xf = x
+            free = lambda: dev.blocks(xf)                       # noqa: E731
+            free_ref = fused.fused_spmv_reference
+        yf = free()
+        yfr = (dev.blocks_multi(xf, free_ref) if multi
+               else dev.blocks(xf, free_ref))
+        self.sync()
+        free_ms = (self.call_ms(free), self.back_to_back(free))
+        print(f"  {name} [{tag}]: the free wrapper vs its plain version "
+              f"max abs {_agree(yf, yfr):.3e}, {free_ms[0]:.4f} ms a call, "
+              f"{free_ms[1]:.4f} back to back", flush=True)
+        del yf, yfr
         yk, yr = kern(), plain()
         self.sync()
         err = _agree(yk, yr)
@@ -1043,22 +1106,27 @@ class Smoke:
               f" ms, plain {back['plain']:.4f} ms; host "
               f"{(ms['kernel'] - back['kernel']) * 1e3:.1f} us a call",
               flush=True)
-        stream = _nbytes(*(getattr(dev, n) for n, _ in fused._KERNEL_INPUTS))
-        nb = _fused_bytes(dev, k, spills=not multi) + _nbytes(yk)
+        nb = _fused_bytes(dev, k, spills=True) + _nbytes(yk)
+        extra = {"back_to_back_ms": back["kernel"]}
         if multi:
-            p = dev.meta
-            plane = (p.T * p.planes + (0 if p.fin_direct else p.F1S)) * 512
-            passes = -(-k // min(k, fused.card_limits(self.dev)[1] // plane)) \
-                if self.dev.type == "cuda" else 1
-            design = (passes * stream + _nbytes(x, yk)) / (self.hbm * 1e6)
-            print(f"  fused_spmm [{tag}]: {passes} passes over the "
-                  f"{stream} B stream (plane groups of the opt-in shared "
-                  f"memory): this design's bound {design:.4f} ms, the "
-                  f"one-pass bound {nb / (self.hbm * 1e6):.4f} ms",
+            # every forward slot whose x index lies inside X gathers its
+            # row of X, k floats, from the L2
+            idx = fused.forward_gather_index(
+                {n: getattr(dev, n) for n in ("meta_i1", "meta_rt",
+                                              "tile_base")}, dev.meta.GLW)
+            gather = int((idx < dev.meta.nr_cols).sum()) * k * 4
+            del idx
+            extra.update(gather_bytes=gather,
+                         gather_gbps=gather / ms["kernel"] / 1e6)
+            print(f"  {name} [{tag}]: k={k}, plane vectors of "
+                  f"{self.build.vector_width(k, x, yk)} floats, the one-pass "
+                  f"bound {nb / (self.hbm * 1e6):.4f} ms | L2 gathers of X's "
+                  f"rows {gather} B, moved at "
+                  f"{gather / ms['kernel'] / 1e6:.0f} GB/s a call, "
+                  f"{gather / back['kernel'] / 1e6:.0f} back to back",
                   flush=True)
         self.record(name, tag, err, ms["kernel"], ms["plain"], nb,
-                    2 * dev.values.numel() * k, lib_ms,
-                    None if multi else {"back_to_back_ms": back["kernel"]})
+                    2 * dev.values.numel() * k, lib_ms, extra)
 
     def launches_a_call(self, tag, fn):
         """(kernel launches, memsets) in one call of ``fn``, from a
@@ -1243,7 +1311,7 @@ def fused_regimes(s):
               f"{err:.3e} rel {rel:.3e}; the device's one launch (x "
               f"unpadded, live counts, spills) vs its plain version "
               f"{dev_err:.3e} | vs spmv_gold 0 errors", flush=True)
-        errs = []
+        errs, dev_errs = [], []
         for k in (1, 3, 8):
             X = _X(m.nr_cols, k, seed=k)
             Xp = dev.prepare_x_multi(X)
@@ -1251,9 +1319,16 @@ def fused_regimes(s):
             yr = dev.blocks_multi(Xp, fused.fused_spmm_reference)
             s.sync()
             errs.append(_agree(yk, yr))
+            Xt = s.torch.as_tensor(X, dtype=s.torch.float32, device=s.dev)
+            yk = dev.spmm_blocks(Xt)
+            s.sync()
+            dev_errs.append(_agree(yk, dev.spmm_blocks_reference(Xt)))
+            _gold_errors_multi(s, m, X, dev.spmm(Xt))
             _gold_errors_multi(s, m, X, dev.spmm(Xp, x_is_packed=True))
-        print(f"fused regime {tag}, SpMM k=1,3,8: fused_spmm vs plain max "
-              f"abs {max(errs):.3e} | vs spmm_gold 0 errors", flush=True)
+        print(f"fused regime {tag}, SpMM k=1,3,8: the free wrapper vs plain "
+              f"max abs {max(errs):.3e}; the device's one launch (X "
+              f"unpadded, live counts, spills) vs its plain version "
+              f"{max(dev_errs):.3e} | vs spmm_gold 0 errors", flush=True)
 
 
 def classic_regimes(s):
@@ -2606,7 +2681,8 @@ def bench_entry(s, t0):
 
 
 def one_launch(s, tag, fn):
-    """A fused ``sm @ x`` call must be one kernel and one memset."""
+    """A fused ``sm @ x`` (or ``sm @ X``) call must be one kernel and one
+    memset."""
     got = s.launches_a_call(tag, fn)
     if got is not None and got != (1, 1):
         raise RuntimeError(f"{tag}: expected one kernel and one memset a "
@@ -2695,9 +2771,9 @@ def run(device, hbm: float, small: bool = False):
     tag = "headline SpMM k=8"
     Xt = spmm_path(s, tag, m, lambda X: sm @ X, [sm.fused_device], 8)
     lib_ms = s.whole_call_multi(sm, m, Xt, tag)
+    s.fused_kernel(sm.fused_device, Xt, tag, lib_ms, multi=True)
     s.profile(tag, lambda: sm @ Xt)
-    s.fused_kernel(sm.fused_device, sm.fused_device.prepare_x_multi(Xt), tag,
-                   lib_ms, multi=True)
+    one_launch(s, tag, lambda: sm @ Xt)
     print(f"phase headline SpMM: {time.perf_counter() - t0:.1f} s",
           flush=True)
 

@@ -14,6 +14,8 @@ calls, CUDA events: ``bench/harness.py:call_ms``):
   headline_f64      ``sm @ x`` at the headline in f64 (the fused f64
                     device);
   headline_f64_k4   ``sm @ X`` there, k = 4 (one fused f64 SpMV a column);
+  headline_k8       ``sm @ X`` at the headline, k = 8: the fused SpMM;
+  headline_k8_loop  8 ``sm @ x`` calls (8 fused SpMVs) on its columns;
   headline_k72      ``sm @ X`` at the headline, k = 72: past the fused
                     SpMM's limit on an H100, the classic device's k-plane
                     forward and final;
@@ -42,7 +44,8 @@ calls, CUDA events: ``bench/harness.py:call_ms``):
                     one.
 
 ``back_to_back`` holds the headline calls' device time a call with the
-calls back to back (``bench/harness.py:stream_ms``), and
+calls back to back (``bench/harness.py:stream_ms``; for ``headline_k8``
+and its loop too), and
 ``cg_df64_profile`` one warm iteration of that solve under the profiler
 (10 iterations traced): device us an iteration by kernel name, launches an
 iteration, and the host clock's us an iteration.
@@ -116,11 +119,15 @@ def run(device: str, small: bool) -> dict:
     del sm, m
     m = h.random_csr(nr, 100_000, density=0.0005, seed=1, dtype=np.float32)
     sm = spmv("headline", m, back_to_back=True)
-    for k in (72, 96, 128):
+    for k in (8, 72, 96, 128):
         Xt = spmm(f"headline_k{k}", sm, m, k)
         cols = [Xt[:, j].contiguous() for j in range(k)]
         ms[f"headline_k{k}_loop"] = call_ms(lambda: [sm @ c for c in cols],
                                             dev, repeats=10)
+        if k == 8 and dev.type == "cuda":
+            b2b["headline_k8"] = stream_ms(lambda: sm @ Xt, dev)
+            b2b["headline_k8_loop"] = stream_ms(
+                lambda: [sm @ c for c in cols], dev)
     del sm, Xt, cols
     shuf = st.GStreamDevice(h.pack_gstream(m, shuffle_lanes=True), dev)
     spmm("shuffled_k8", None, m, 8, fn=lambda X: st.spmm_gstream(shuf, X))

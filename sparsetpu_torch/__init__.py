@@ -47,8 +47,8 @@ from .kernels.spmm import (gstream_chunk_sums_multi,
                            gstream_chunk_sums_multi_f64, spmm_gstream)
 from .kernels.spmv_fused import (DF64FusedDevice, FusedDevice, fused_spmm,
                                  fused_spmv, fused_spmv_f64)
-from .kernels.spmv_gstream import (GStreamDevice, gstream_chunk_sums,
-                                   gstream_chunk_sums_f64)
+from .kernels.spmv_gstream import (GStreamDevice, LiveSlots,
+                                   gstream_chunk_sums, live_slot_sums)
 from .kernels.spgemm import SpGEMMPlan, spgemm
 from .solvers import (CGResult, bicgstab, cg, cg_df64, cg_step, gmres,
                       jacobi_iteration, jacobi_preconditioner, pcg, pcg_df64,
@@ -62,8 +62,8 @@ __all__ = [
     "fused_spmv", "GStreamDevice",
     "gstream_chunk_sums", "gstream_chunk_sums_multi", "spmm_gstream",
     "DF64FusedDevice", "DF64GStreamDevice", "spmm_df64", "fused_spmv_f64",
-    "gstream_chunk_sums_f64", "FinalRows", "final_rows", "final_rows_multi",
-    "gstream_chunk_sums_multi_f64",
+    "LiveSlots", "live_slot_sums", "FinalRows", "final_rows",
+    "final_rows_multi", "gstream_chunk_sums_multi_f64",
     "BSRDevice", "bsr_partials", "bsr_spmv", "SpGEMMPlan", "spgemm",
     "CGResult", "bicgstab", "cg", "cg_df64", "cg_step", "gmres",
     "jacobi_iteration", "jacobi_preconditioner", "pcg", "pcg_df64",

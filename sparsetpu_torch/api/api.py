@@ -262,9 +262,11 @@ class SparseMatrix:
 
     def spmv(self, x) -> torch.Tensor:
         """y = A @ x, a tensor on this matrix's device.  A fused matrix
-        takes x unpadded: one kernel launch and its output's memset."""
+        takes x unpadded: one kernel launch and its output's memset; the
+        classic f64 device takes it unpadded too (its forward reads the
+        live slots' columns)."""
         if self._parts is None and self._heavy_dev is None and \
-                isinstance(self._device, FusedDevice):
+                isinstance(self._device, (FusedDevice, DF64GStreamDevice)):
             d = self._device
             return d.spmv(torch.as_tensor(x, dtype=d.dtype, device=d.device))
         return self.spmv_packed_x(self.prepare_x(x))

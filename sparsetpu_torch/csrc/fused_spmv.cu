@@ -87,131 +87,14 @@
 // rtol 1e-5, atol 1e-5 * max(1, max|y|) in f32; rtol 1e-12, atol 1e-12 *
 // max(1, max|y|) in f64).  atomicAdd on double is native on sm_60 and up.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-// Every buffer of a device and its layout, built once a device (the free
-// wrappers build one a call).  Mirrored field for field by the ctypes
-// structure in kernels/spmv_fused.py.
-struct FusedPlan {
-  const void* values;
-  const int8_t* meta_i1;
-  const int8_t* meta_rt;
-  const int32_t* tile_base;
-  const int8_t* fin1_i1;
-  const int8_t* fin1_rt;
-  const int8_t* fin2_i1;
-  const int8_t* fin2_rt;
-  const int32_t* fin2_group;
-  const int32_t* step_slab;
-  const int32_t* fin1_cnt;   // null: F1_max every step
-  const int32_t* fin2_cnt;   // null: F2_max every step
-  const int64_t* spill_pos;  // flat positions in the slab blocks
-  const int64_t* spill_col;
-  const void* spill_val;
-  long long n_out;           // elements of the slab blocks
-  int n_steps, T, GLW, P, F1_max, F2_max, F1A, F2A, F1S, OBp, fin_direct;
-  int n_spills, f64, device;
-};
+#include "fused_common.cuh"
 
 namespace {
 
-constexpr int kLanes = 128;
-constexpr int kChunk = 8;
-constexpr int kSlots = kChunk * kLanes;   // a tile: 8 x 128 slots
-constexpr int kThreads = 1024;            // a block, a step
-constexpr int kGroups = kThreads / kLanes;
+using namespace fused;
 
 // tiles in flight a group of 128 threads
 template <typename R> constexpr int kRing = sizeof(R) == 4 ? 2 : 1;
-
-// Layout of a block's shared memory, in bytes: the ring's int8 planes (i1
-// then rt a slot), the mbarriers, the step's tile bases.
-template <typename R> struct Layout {
-  static constexpr int slots = kGroups * kRing<R>;
-  static constexpr size_t bars = (size_t)slots * 2 * kSlots;
-  static constexpr size_t tb = bars + (size_t)slots * sizeof(uint64_t);
-  static constexpr size_t total = tb + (size_t)kLanes * sizeof(int32_t);
-};
-
-__device__ __forceinline__ int cell(int c, int groups) {
-  return ((c >> 3) & (groups - 1)) * kChunk + (c & 7);
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void bar_expect(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// wait for the phase of parity `parity` to complete; a copy that never
-// lands (a fault the host checks should rule out) traps after ~2^28 polls
-// instead of hanging the card
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_addr(bar);
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 28)) __trap();
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(a), "r"(parity)
-        : "memory");
-  }
-}
-
-// bytes from global into the L2, ahead of their loads
-__device__ __forceinline__ void prefetch_l2(const void* src, uint32_t bytes) {
-  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src),
-               "r"(bytes)
-               : "memory");
-}
-
-// a value of the stream, read once: not kept in L1, which holds the x
-// window's lines
-__device__ __forceinline__ float load_once(const float* p) {
-  float v;
-  asm volatile("ld.global.nc.L1::no_allocate.f32 %0, [%1];\n"
-               : "=f"(v)
-               : "l"(p));
-  return v;
-}
-__device__ __forceinline__ double load_once(const double* p) {
-  double v;
-  asm volatile("ld.global.nc.L1::no_allocate.f64 %0, [%1];\n"
-               : "=d"(v)
-               : "l"(p));
-  return v;
-}
-
-// bytes from global to this block's shared memory, completing on bar
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
-      : "memory");
-}
-
-// the 128 threads of group g meet (named barrier g + 1; 0 is
-// __syncthreads)
-__device__ __forceinline__ void group_sync(int g) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(g + 1), "r"(kLanes) : "memory");
-}
 
 // ws: the call's workspace, n_steps planes of (T*P + F1S) x 128
 template <typename R>
@@ -219,7 +102,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 fused_spmv_kernel(const FusedPlan p, const R* __restrict__ x, int n_x,
                   R* out, R* ws) {
   constexpr int ring = kRing<R>;
-  using L = Layout<R>;
+  using L = Layout<ring>;
   const int tid = threadIdx.x;
 
   // ---- spill blocks, past the steps
@@ -381,12 +264,9 @@ fused_spmv_kernel(const FusedPlan p, const R* __restrict__ x, int n_x,
 
 template <typename R>
 cudaError_t prepare() {
-  // the least shared memory carve-out that holds the block and its 1 KB
-  // reserve: the rest of the SM's 256 KB stays L1 for the x window
-  const size_t need = ((Layout<R>::total + 1024) * 100 + 232447) / 232448;
   return cudaFuncSetAttribute(fused_spmv_kernel<R>,
                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)need);
+                              carveout(Layout<kRing<R>>::total));
 }
 
 template <typename R>
@@ -394,7 +274,8 @@ cudaError_t launch(const FusedPlan& p, const void* x, int n_x, void* out,
                    void* ws, cudaStream_t stream) {
   const int grid = p.n_steps + (p.n_spills + kThreads - 1) / kThreads;
   if (grid == 0) return cudaSuccess;
-  fused_spmv_kernel<R><<<grid, kThreads, Layout<R>::total, stream>>>(
+  fused_spmv_kernel<R><<<grid, kThreads, Layout<kRing<R>>::total,
+                                stream>>>(
       p, static_cast<const R*>(x), n_x, static_cast<R*>(out),
       static_cast<R*>(ws));
   return cudaGetLastError();

@@ -1,9 +1,11 @@
 """Build the port's CUDA sources into one shared library and load it.
 
-The fused SpMV, the forward, the k-plane forward and the row-sorted final
+The fused SpMV, the k-plane forward and the row-sorted final
 (``final_rows.cu``, the classic devices' final level, one plane or k)
 template their kernels on the real type: one source holds a kernel's f32
-and f64 (native FP64) forms, each behind its own entry point.  The BSR
+and f64 (native FP64) forms, each behind its own entry point; the classic
+forward's f64 form is its own kernel over the live slots
+(``gstream_spmv.cu``).  The BSR
 partials (``bsr_spmv.cu``) are f32 only, as the TPU's BSR device; the
 stage ladder (``micro_ladder.cu``, ``bench/micro.py``), the fused
 kernel's stage split (``fused_stages.cu``, ``bench/fused_stages.py``), the
@@ -123,14 +125,17 @@ def library() -> _Library:
     lib.gstream_spmv_launch.restype = i
     lib.gstream_spmv_launch.argtypes = [p, i] + [p] * 5 + [ll] + [i] * 4 \
         + [p]
-    lib.fused_spmm_launch.restype = i
-    lib.fused_spmm_launch.argtypes = [p] * 12 + [i] * 13 + [p]
+    # the fused SpMM: the same plan, then a call on k planes
+    lib.fused_spmm_prepare.restype = i
+    lib.fused_spmm_prepare.argtypes = [p]
+    lib.fused_spmm_run.restype = i
+    lib.fused_spmm_run.argtypes = [p, p, ll, i, i, p, p, p]
     lib.gstream_spmm_launch.restype = i
     lib.gstream_spmm_launch.argtypes = [p, i] + [p] * 5 + [ll] + [i] * 6 \
         + [p]
     # f64 (native FP64) entry points
-    lib.gstream_spmv_f64_launch.restype = i
-    lib.gstream_spmv_f64_launch.argtypes = [p] * 5 + [ll] + [i] * 3 + [p]
+    lib.live_slots_f64_launch.restype = i
+    lib.live_slots_f64_launch.argtypes = [p] * 6 + [i, p]
     lib.gstream_spmm_f64_launch.restype = i
     lib.gstream_spmm_f64_launch.argtypes = [p] * 5 + [ll] + [i] * 5 + [p]
     lib.final_rows_launch.restype = i

@@ -16,16 +16,18 @@ place of ``DF64``.
   ``DF64GStreamDevice``  the classic f64 device: one forward stream with
                          float64 values (Q pinned to 8, no lane shuffle)
                          and a legacy ``_FinalLevel`` only, or the
-                         segment-sum route when none builds;
+                         segment-sum route when none builds; its forward
+                         reads only the pack's live slots at the positions
+                         the finish reads (``LiveSlots``);
   ``spmm_df64``          Y = A @ X on either f64 device: one fused f64 SpMV
                          a column on ``DF64FusedDevice``, the k-plane f64
                          forward once then the k-plane f64 final here.
 
 The kernels are the f64 forms of ``csrc/fused_spmv.cu``,
-``gstream_spmv.cu``, ``final_rows.cu`` and ``gstream_spmm.cu``, behind
-``fused_spmv_f64``, ``gstream_chunk_sums_f64``, ``final_rows`` and
-``final_rows_multi`` (on f64 positions) and
-``gstream_chunk_sums_multi_f64``.
+``final_rows.cu`` and ``gstream_spmm.cu`` and the live-slot kernel of
+``gstream_spmv.cu``, behind ``fused_spmv_f64``, ``final_rows`` and
+``final_rows_multi`` (on f64 positions), ``gstream_chunk_sums_multi_f64``
+and ``live_slot_sums``.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from .. import _host
 from ..pack.final_levels import FinishPlan, _FinalLevel
 from .spmm import spmm_gstream
 from .spmv_fused import DF64FusedDevice
-from .spmv_gstream import GStreamDevice
+from .spmv_gstream import GStreamDevice, LiveSlots, live_slot_sums
 
 
 def split_f64(x: np.ndarray):
@@ -82,11 +84,17 @@ class DF64GStreamDevice(GStreamDevice):
     ``DF64GStreamDevice``): a ``GStreamDevice`` with the hi + lo value
     plane in float64, no F levels, and the legacy ``_FinalLevel`` or, when
     none builds, the segment-sum route, in float64.  ``spmv`` returns a
-    float64 y.  ``finish_vec`` is the JAX ``finish_df64``
+    float64 y: the forward over ``slots``, the pack's live slots at the
+    positions the finish reads (``LiveSlots``, built at upload: the final
+    map's positions, or the segment-sum's), one launch of
+    ``live_slot_sums``; then ``finish_vec``, the JAX ``finish_df64``
     (``f64emu.py:527-581``): the f64 final with its spills, one row-sorted
     gather-sum in FP64 (the padded spills dropped at upload); or the f64
-    segment-sum.  ``DF64GStreamDevice(matrix, device)`` packs an f64 CSR
-    matrix; ``from_packed`` uploads a (hi, lo) pack pair."""
+    segment-sum.  The pack stays on the device for ``A @ X`` (the k-plane
+    forward reads it whole) and as the plain yardstick
+    (``stream(x2, gstream_chunk_sums_reference)``).
+    ``DF64GStreamDevice(matrix, device)`` packs an f64 CSR matrix;
+    ``from_packed`` uploads a (hi, lo) pack pair."""
 
     def __init__(self, matrix, device):
         self._build(*pack_gstream_df64(matrix), device)
@@ -115,6 +123,33 @@ class DF64GStreamDevice(GStreamDevice):
         GStreamDevice.__init__(
             self, packed_hi, device,
             values=join_f64(packed_hi.values, packed_lo.values), plan=plan)
+        read = (torch.unique(self.final.rows.idx) if self.final is not None
+                else self.chunk_pos)
+        self.slots = LiveSlots.build(self.stream, read, packed_hi.nr_cols)
+
+    def forward_live(self, x: torch.Tensor, kernel=None) -> torch.Tensor:
+        """The chunk sums the finish reads, through ``kernel`` (default
+        the wrapper ``live_slot_sums``; ``live_slot_sums_reference`` to
+        compare), from x 1-D float64: unpadded, or x2 flattened."""
+        return (kernel or live_slot_sums)(x, self.slots)
+
+    def spmv(self, x, x_is_packed: bool = False) -> torch.Tensor:
+        """y = A @ x (nr_rows,) float64: x unpadded, or prepared
+        (``prepare_x``) with ``x_is_packed``.  A tensor must be float64 on
+        the device already (anything else is converted)."""
+        if isinstance(x, torch.Tensor):
+            if x.dtype != torch.float64 or x.device != self.device:
+                raise ValueError(f"x must be a float64 tensor on "
+                                 f"{self.device}, got {x.dtype} on "
+                                 f"{x.device}")
+        else:
+            x = torch.as_tensor(x, dtype=torch.float64, device=self.device)
+        want = ((self.meta.padded_cols // 128, 128) if x_is_packed
+                else (self.meta.nr_cols,))
+        if tuple(x.shape) != want:
+            raise ValueError(f"x has shape {tuple(x.shape)}, expected "
+                             f"{want}")
+        return self.finish_vec(self.forward_live(x.contiguous().view(-1)))
 
 
 def spmm_df64(device, X) -> torch.Tensor:

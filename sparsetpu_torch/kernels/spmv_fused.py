@@ -8,13 +8,14 @@ spills' flat positions as buffers, checks them and builds the kernel's
 launch plan once, and runs y = A @ x as one launch of
 ``csrc/fused_spmv.cu`` (the output zeroed in the same call, x read
 unpadded, the spills added by the kernel), y a view of the per-slab output
-blocks; ``spmm`` does the same for Y = A @ X with one kernel for all k
-columns (``csrc/fused_spmm.cu``), X, the blocks and Y row-major.
-``fused_spmv`` and ``fused_spmm`` are the kernels' free wrappers (checks
-and a plan a call); ``fused_spmv_reference`` and ``fused_spmm_reference``
-are the same functions in plain PyTorch, used for tensors on the CPU and
-for comparisons on the card, and ``FusedDevice.spmv_blocks_reference`` the
-device's call in plain PyTorch.  ``fused_spmv_f64`` is the fused kernel in
+blocks; ``spmm`` does the same for Y = A @ X, one launch of
+``csrc/fused_spmm.cu`` for all k columns from the same plan, X unpadded,
+the blocks and Y row-major.  ``fused_spmv`` and ``fused_spmm`` are the
+kernels' free wrappers (checks and a plan a call); ``fused_spmv_reference``
+and ``fused_spmm_reference`` are the same functions in plain PyTorch, used
+for tensors on the CPU and for comparisons on the card, and
+``FusedDevice.spmv_blocks_reference`` and ``spmm_blocks_reference`` the
+device's calls in plain PyTorch.  ``fused_spmv_f64`` is the fused kernel in
 native FP64 (the f32 wrapper hands it f64 inputs); its plain version is
 ``fused_spmv_reference``, which runs in the inputs' real type.
 """
@@ -29,7 +30,7 @@ from torch import nn
 
 from .. import _host
 from ..utils.device import require_device
-from ._build import check, library
+from ._build import check, library, vector_width
 
 LANES = _host.LANES
 CHUNK = _host.CHUNK
@@ -280,6 +281,9 @@ def _plan(t: dict, dims: dict, *, n_out: int, counts=None,
     lib = library().lib
     check(lib, lib.fused_spmv_prepare(ctypes.addressof(p)),
           "fused_spmv prepare")
+    if not p.f64:
+        check(lib, lib.fused_spmm_prepare(ctypes.addressof(p)),
+              "fused_spmm prepare")
     return p
 
 
@@ -295,6 +299,23 @@ def _run(p: _Plan, x: torch.Tensor, out: torch.Tensor) -> None:
         ctypes.addressof(p), x.data_ptr(), x.numel(), out.data_ptr(),
         ws.data_ptr(), torch.cuda.current_stream(x.device).cuda_stream),
         "fused_spmv launch")
+
+
+def _run_multi(p: _Plan, X: torch.Tensor, out: torch.Tensor) -> None:
+    """One SpMM call of a plan on the current stream of X's device: X
+    (rows, k) row-major, ``out`` (n_out, k) zeroed and the kernel launched
+    with the widest plane vector k and the buffers take; the chunk sums
+    and stage-1 partials of every step in a workspace of this call's own
+    (the caching allocator orders it on the stream)."""
+    lib = library().lib
+    k = X.shape[1]
+    ws = torch.empty(p.n_steps * (p.T * p.P + p.F1S) * LANES * k,
+                     dtype=torch.float32, device=X.device)
+    check(lib, lib.fused_spmm_run(
+        ctypes.addressof(p), X.data_ptr(), X.shape[0], k,
+        vector_width(k, X, out, ws), out.data_ptr(), ws.data_ptr(),
+        torch.cuda.current_stream(X.device).cuda_stream),
+        "fused_spmm launch")
 
 
 def _launch_free(t: dict, x2: torch.Tensor, *, T, GLW, P, F1_max, F2_max,
@@ -377,7 +398,7 @@ fused_spmv_f64.launches = 0
 
 def card_limits(device: torch.device) -> tuple:
     """(L2 cache bytes, shared memory bytes a block may opt in to) of a
-    CUDA device: the two limits of the fused SpMM kernel."""
+    CUDA device."""
     props = torch.cuda.get_device_properties(device)
     return props.L2_cache_size, props.shared_memory_per_block_optin
 
@@ -406,10 +427,10 @@ def fused_spmm(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
     """The fused SpMM kernel: slab blocks (n_slabs*OBp*128, k) f32 of
     Y = A @ X, X row-major (GX*8*128, k).
 
-    On CUDA tensors it launches ``csrc/fused_spmm.cu`` on the current
-    stream (or raises), with as many planes a block as the card's opt-in
-    shared memory holds; on CPU tensors it runs ``fused_spmm_reference``.
-    ``fused_spmm.launches`` counts kernel launches."""
+    On CUDA tensors it checks its inputs, plans and launches
+    ``csrc/fused_spmm.cu`` on the current stream (or raises): no live
+    counts, no spills; on CPU tensors it runs ``fused_spmm_reference``.
+    ``fused_spmm.launches`` counts kernel launches, the devices' too."""
     kw = dict(T=T, GLW=GLW, P=P, F1_max=F1_max, F2_max=F2_max, F1S=F1S)
     if values.dtype == torch.float64:
         raise ValueError("fused_spmm: there is no f64 SpMM kernel (the f64 "
@@ -424,24 +445,11 @@ def fused_spmm(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
     t = _named(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
                fin2_i1, fin2_rt, fin2_group, step_slab)
     n_steps, F1A, F2A = _check_inputs(t, X, GX=GX, **kw)
-    k = X.shape[1]
-    plane = (T * P + (0 if fin_direct else F1S)) * LANES * 4
-    _, smem = card_limits(X.device)
-    if plane > smem:
-        raise ValueError(f"fused_spmm: one plane's scratch ({plane} B) "
-                         f"exceeds the {smem} B a block may use")
-    kg = min(k, smem // plane)
-    lib = library().lib
     with torch.cuda.device(X.device):
-        out = torch.zeros(n_slabs * OBp * LANES, k, device=X.device)
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = lib.fused_spmm_launch(
-            *(ctypes.c_void_p(t[name].data_ptr())
-              for name, _ in _KERNEL_INPUTS),
-            ctypes.c_void_p(X.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            n_steps, T, GLW, P, F1_max, F2_max, F1A, F2A, F1S, OBp,
-            fin_direct, k, kg, ctypes.c_void_p(stream))
-    check(lib, rc, "fused_spmm launch")
+        out = torch.empty(n_slabs * OBp * LANES, X.shape[1], device=X.device)
+        dims = dict(n_steps=n_steps, F1A=F1A, F2A=F2A, OBp=OBp,
+                    fin_direct=fin_direct, **kw)
+        _run_multi(_plan(t, dims, n_out=out.shape[0]), X, out)
     fused_spmm.launches += 1
     return out
 
@@ -618,10 +626,11 @@ class FusedDevice(nn.Module):
         return torch.cat([flat[s * ob:s * ob + int(sb[s + 1] - sb[s])]
                           for s in range(m.n_slabs)])
 
-    def _x(self, x, x_is_packed: bool) -> torch.Tensor:
+    def _x(self, x, x_is_packed: bool, multi: bool = False) -> torch.Tensor:
         """x checked for a call: a tensor must already have the device's
         real type and device (anything else is converted); (nr_cols,), or
-        (GX*8, 128) when ``x_is_packed``."""
+        (GX*8, 128) when ``x_is_packed``; with ``multi``, X of (nr_cols,
+        k), or (GX*1024, k) when ``x_is_packed``."""
         m = self.meta
         if isinstance(x, torch.Tensor):
             if x.dtype != self.dtype or x.device != self.device:
@@ -630,8 +639,14 @@ class FusedDevice(nn.Module):
                                  f"{x.device}")
         else:
             x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        want = (m.GX * CHUNK, STRIPE) if x_is_packed else (m.nr_cols,)
-        if tuple(x.shape) != want:
+        if multi:
+            rows = m.GX * CHUNK * STRIPE if x_is_packed else m.nr_cols
+            ok = x.dim() == 2 and x.shape[0] == rows and x.shape[1] >= 1
+            want = f"({rows}, k)"
+        else:
+            want = (m.GX * CHUNK, STRIPE) if x_is_packed else (m.nr_cols,)
+            ok = tuple(x.shape) == want
+        if not ok:
             raise ValueError(f"x has shape {tuple(x.shape)}, expected "
                              f"{want}")
         return x if x.is_contiguous() else x.contiguous()
@@ -653,20 +668,26 @@ class FusedDevice(nn.Module):
         """``spmv_blocks`` in plain PyTorch: x (any length up to the padded
         columns) read as zero past its end, the finish loops cut to the
         live counts, the spills added at their flat positions."""
-        xp = x.reshape(-1)
-        pad = self.meta.GX * CHUNK * STRIPE - xp.numel()
-        xp = nn.functional.pad(xp, (0, pad))
+        return self.spmm_blocks_reference(x.reshape(-1, 1)).view(-1)
+
+    def spmm_blocks_reference(self, X: torch.Tensor) -> torch.Tensor:
+        """``spmm_blocks`` in plain PyTorch: X (rows up to the padded
+        columns, k) read as zero past its last row, the finish loops cut to
+        the live counts, the spills' k planes added at their flat
+        positions.  Returns (n_slabs*OBp*128, k)."""
+        Xp = nn.functional.pad(
+            X, (0, 0, 0, self.meta.GX * CHUNK * STRIPE - X.shape[0]))
         t = {name: getattr(self, name) for name, _ in _KERNEL_INPUTS}
         d = self._dims
         flat = _reference(
-            t, xp.view(-1, 1), d["n_steps"], d["F1A"], d["F2A"], T=d["T"],
+            t, Xp, d["n_steps"], d["F1A"], d["F2A"], T=d["T"],
             GLW=d["GLW"], P=d["P"], F1_max=d["F1_max"], F2_max=d["F2_max"],
             F1S=d["F1S"], OBp=d["OBp"], n_slabs=self.meta.n_slabs,
             fin_direct=d["fin_direct"],
-            counts=(self.fin1_cnt, self.fin2_cnt)).view(-1)
+            counts=(self.fin1_cnt, self.fin2_cnt))
         if self.n_spills:
             flat.index_add_(0, self.spill_pos,
-                            self.spill_val * xp[self.spill_col])
+                            self.spill_val[:, None] * Xp[self.spill_col])
         return flat
 
     def spmv(self, x, x_is_packed: bool = False) -> torch.Tensor:
@@ -678,16 +699,16 @@ class FusedDevice(nn.Module):
     # -- SpMM (counterpart of sparsetpu/kernels/spmv_fused.py:423-474) ------
     def spmm_applicable(self, k: int) -> bool:
         """True when the fused SpMM kernel takes k planes.  On a card: the k
-        X planes fit half the L2 (x stays resident, as in VMEM on the TPU)
-        and one plane's scratch fits a block's opt-in shared memory.  On the
-        CPU: the JAX package's VMEM budget, so routes agree with it."""
+        X planes fit half the L2 (X stays resident, as in VMEM on the TPU;
+        the scratch lives in a workspace, so shared memory sets no limit).
+        On the CPU: the JAX package's VMEM budget, so routes agree with
+        it."""
         m = self.meta
         if k < 1:
             return False
         if self.device.type == "cuda":
-            l2, smem = card_limits(self.device)
-            scratch = (m.T * m.planes + m.F1S) * LANES * 4
-            return k * m.padded_cols * 4 <= l2 // 2 and scratch <= smem
+            l2, _ = card_limits(self.device)
+            return k * m.padded_cols * 4 <= l2 // 2
         plane = m.padded_cols + (m.T * m.planes + m.F1S + m.OBp) * LANES
         return k * plane * 4 <= SPMM_PLANE_BYTES_MAX
 
@@ -712,17 +733,24 @@ class FusedDevice(nn.Module):
             F2_max=m.F2_max, F1S=m.F1S, OBp=m.OBp, n_slabs=m.n_slabs,
             fin_direct=m.fin_direct, GX=m.GX)
 
+    def spmm_blocks(self, X, x_is_packed: bool = False) -> torch.Tensor:
+        """The flat slab blocks (n_slabs*OBp*128, k) of Y = A @ X, spills
+        included: on a card one launch of the plan (the output zeroed in
+        it), on the CPU ``spmm_blocks_reference``."""
+        X = self._x(X, x_is_packed, multi=True)
+        if X.device.type == "cpu":
+            return self.spmm_blocks_reference(X)
+        out = torch.empty(self.meta.n_slabs * self.meta.OBp * LANES,
+                          X.shape[1], device=self.device)
+        _run_multi(self._plan, X, out)
+        fused_spmm.launches += 1
+        return out
+
     def spmm(self, X, x_is_packed: bool = False) -> torch.Tensor:
-        """Y = A @ X, (nr_rows, k): one kernel for all k planes, the
-        spills' k-plane scatter-add at their flat positions, y's rows
-        sliced out."""
-        Xp = X if x_is_packed else self.prepare_x_multi(X)
-        Yb = self.blocks_multi(Xp)
-        if self.n_spills:
-            # in place: the blocks are this call's own output
-            Yb.index_add_(0, self.spill_pos,
-                          self.spill_val[:, None] * Xp[self.spill_col])
-        return self._rows(Yb)
+        """Y = A @ X, (nr_rows, k): X unpadded, or prepared
+        (``prepare_x_multi``) with ``x_is_packed``; one launch for all k
+        planes and the spills, y's rows sliced out."""
+        return self._rows(self.spmm_blocks(X, x_is_packed))
 
 
 # -- f64 (DOUBLE=1) on the fused layout ---------------------------------------

@@ -24,10 +24,11 @@ plain PyTorch version (``gstream_chunk_sums_reference``) for tensors on
 the CPU, and launches its kernel (or raises) for tensors on a CUDA device.
 
 The f64 device (``f64emu.DF64GStreamDevice``) is this device with float64
-values, positions and y: the wrappers hand float64 inputs to their native
-FP64 forms, ``gstream_chunk_sums_f64`` (window scheme) and ``final_rows``
-(its f64 entry point), whose plain versions are the same ``..._reference``
-functions, which run in the inputs' real type.
+values, positions and y: its forward is ``live_slot_sums`` over a
+``LiveSlots`` map built at upload (the pack's live slots at the positions
+its finish reads), and ``final_rows`` takes float64 positions to its f64
+entry point.  ``gstream_chunk_sums_reference`` still runs the whole f64
+pack in plain PyTorch, the yardstick the live slots are held to.
 """
 
 from __future__ import annotations
@@ -144,10 +145,8 @@ def gstream_chunk_sums(values, meta, step_window, x2, *, T: int, G: int,
     stream (or raises); on CPU tensors it runs
     ``gstream_chunk_sums_reference``.  ``gstream_chunk_sums.launches``
     counts launches by scheme: ``"window"`` (GL = 0) and ``"tile_base"``.
-    f64 values go to ``gstream_chunk_sums_f64``."""
-    if values.dtype == torch.float64:
-        return gstream_chunk_sums_f64(values, meta, step_window, x2, T=T,
-                                      G=G, P=P, GL=GL, tile_base=tile_base)
+    f64 values run on the CPU only: on the card the f64 device's forward is
+    ``live_slot_sums``, which reads the pack's live slots alone."""
     if x2.device.type == "cpu":
         return gstream_chunk_sums_reference(values, meta, step_window, x2,
                                             T=T, G=G, P=P, GL=GL,
@@ -155,6 +154,10 @@ def gstream_chunk_sums(values, meta, step_window, x2, *, T: int, G: int,
     if x2.device.type != "cuda":
         raise ValueError(f"gstream_chunk_sums: unsupported device "
                          f"{x2.device}")
+    if values.dtype == torch.float64:
+        raise ValueError("gstream_chunk_sums: no kernel reads the f64 pack "
+                         "whole on the card; the f64 forward is "
+                         "live_slot_sums over the device's LiveSlots")
     n_tiles = _check_forward(values, meta, step_window, tile_base, x2, T=T,
                              G=G, P=P, GL=GL)
     lib = library().lib
@@ -177,44 +180,158 @@ def gstream_chunk_sums(values, meta, step_window, x2, *, T: int, G: int,
 gstream_chunk_sums.launches = collections.Counter()
 
 
-def gstream_chunk_sums_f64(values, meta, step_window, x2, *, T: int, G: int,
-                           P: int, GL: int = 0,
-                           tile_base=None) -> torch.Tensor:
-    """The forward kernel in native FP64 (window scheme): chunk sums
-    (n_tiles*P, 128) f64 for f64 values and x2.
+# ---------------------------------------------------------------------------
+# the f64 forward over the live slots (TPU kernel _df64_spmv_kernel)
+# ---------------------------------------------------------------------------
 
-    On CUDA tensors it launches the f64 form of ``csrc/gstream_spmv.cu``
-    (or raises, also for GL > 0); on CPU tensors it runs
-    ``gstream_chunk_sums_reference``.  ``gstream_chunk_sums_f64.launches``
-    counts launches."""
-    if values.dtype != torch.float64:
-        raise ValueError("gstream_chunk_sums_f64 takes float64 values")
-    if x2.device.type == "cpu":
-        return gstream_chunk_sums_reference(values, meta, step_window, x2,
-                                            T=T, G=G, P=P, GL=GL,
-                                            tile_base=tile_base)
-    if x2.device.type != "cuda":
-        raise ValueError(f"gstream_chunk_sums_f64: unsupported device "
-                         f"{x2.device}")
-    n_tiles = _check_forward(values, meta, step_window, tile_base, x2, T=T,
-                             G=G, P=P, GL=GL)
+INT32_MAX = 2**31 - 1
+
+
+class LiveSlots(nn.Module):
+    """The f64 forward's map, built once at upload from a pack's stream
+    (``build``): for each chunk position the finish reads, its live slots,
+    in sublane order.  A slot is live when its value is nonzero and the
+    select chain keeps its x index (``forward_gather_index``); the rest of
+    the pack, padding and stored zeros, adds nothing on finite x.
+
+      pos     (n_read,) int32 the read positions, ascending;
+      rowptr  (n_read + 1,) int32: pos[r] sums entries rowptr[r]..[r+1];
+      col     int32 each live slot's x index (its matrix column);
+      val     float64 its value.
+
+    ``n_positions`` is the length of the chunk-sum vector the map writes
+    into (n_tiles * P * 128), ``n_cols`` the least length of x."""
+
+    def __init__(self, pos, rowptr, col, val, n_positions: int,
+                 n_cols: int):
+        super().__init__()
+        for name, t, dt in (("pos", pos, torch.int32),
+                            ("rowptr", rowptr, torch.int32),
+                            ("col", col, torch.int32),
+                            ("val", val, torch.float64)):
+            if t.dtype != dt or t.dim() != 1:
+                raise ValueError(f"{name} must be 1-D {dt}")
+        if rowptr.numel() != pos.numel() + 1 or int(rowptr[0]) != 0 or \
+                int(rowptr[-1]) != col.numel() or col.numel() != val.numel():
+            raise ValueError("rowptr must run from 0 to the live slots")
+        if pos.numel() and (int(pos.min()) < 0
+                            or int(pos.max()) >= n_positions):
+            raise ValueError("a read position lies outside the chunk sums")
+        if col.numel() and (int(col.min()) < 0 or int(col.max()) >= n_cols):
+            raise ValueError("a live slot reads past the matrix's columns")
+        self.n_positions, self.n_cols = n_positions, n_cols
+        for name, t in (("pos", pos), ("rowptr", rowptr), ("col", col),
+                        ("val", val)):
+            self.register_buffer(name, t.contiguous())
+
+    @property
+    def n_read(self) -> int:
+        return self.pos.numel()
+
+    @property
+    def n_live(self) -> int:
+        return self.col.numel()
+
+    @classmethod
+    def build(cls, stream: "ForwardStream", read: torch.Tensor,
+              n_cols: int) -> "LiveSlots":
+        """The map of a forward stream (float64 values, on its device)
+        over the positions ``read`` (any integer tensor of chunk
+        positions, sorted ascending without repeats)."""
+        if stream.values.dtype != torch.float64:
+            raise ValueError("LiveSlots takes a stream of float64 values")
+        idx, ok = forward_gather_index(stream.meta16, stream.step_window,
+                                       T=stream.T, G=stream.G, GL=stream.GL,
+                                       tile_base=stream.tile_base)
+        n_pos = idx.shape[0] * stream.P * LANES
+        if n_pos > INT32_MAX:
+            raise ValueError(f"{n_pos} chunk positions do not fit int32")
+        slot = torch.nonzero((ok & (stream.values.view(idx.shape) != 0))
+                             .view(-1)).squeeze(1)
+        del ok
+        # slot (k, s, l) adds to chunk position (k * P + s // Q) * 128 + l;
+        # (position, sublane) orders each position's slots by sublane
+        s = (slot >> 7) & (CHUNK - 1)
+        pos = ((slot >> 10) * stream.P + s // (CHUNK // stream.P)) * LANES \
+            + (slot & (LANES - 1))
+        order = torch.argsort(pos * CHUNK + s)
+        slot, pos = slot[order], pos[order]
+        read = read.to(torch.int64)
+        n = read.numel()
+        r = torch.searchsorted(read, pos)
+        keep = r < n
+        if n:
+            keep &= read[r.clamp(max=n - 1)] == pos
+        slot, r = slot[keep], r[keep]
+        rowptr = torch.zeros(n + 1, dtype=torch.int64, device=read.device)
+        rowptr[1:] = torch.cumsum(torch.bincount(r, minlength=n), 0)
+        return cls(read.to(torch.int32), rowptr.to(torch.int32),
+                   idx.view(-1)[slot].to(torch.int32),
+                   stream.values.view(-1)[slot], n_pos, n_cols)
+
+
+def _check_live(x: torch.Tensor, slots: LiveSlots) -> None:
+    if x.dtype != torch.float64 or x.dim() != 1 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous 1-D float64 tensor, got "
+                         f"{x.dtype} {tuple(x.shape)}")
+    if x.numel() < slots.n_cols or x.numel() > INT32_MAX:
+        raise ValueError(f"x has {x.numel()} elements, the live slots read "
+                         f"{slots.n_cols}")
+    if slots.pos.device != x.device:
+        raise ValueError(f"the live slots lie on {slots.pos.device}, x on "
+                         f"{x.device}")
+
+
+def live_slot_sums_reference(x: torch.Tensor,
+                             slots: LiveSlots) -> torch.Tensor:
+    """Plain PyTorch version of the live-slot kernel: each read position's
+    live products added in sublane order (``index_add_``), the other
+    positions 0.  Returns the chunk sums (n_positions / 128, 128) f64."""
+    _check_live(x, slots)
+    row = torch.repeat_interleave(
+        torch.arange(slots.n_read, device=x.device),
+        slots.rowptr.diff().long(), output_size=slots.n_live)
+    sums = torch.zeros(slots.n_read, dtype=torch.float64, device=x.device)
+    sums.index_add_(0, row, slots.val * x[slots.col.long()])
+    out = torch.zeros(slots.n_positions, dtype=torch.float64,
+                      device=x.device)
+    out[slots.pos.long()] = sums
+    return out.view(-1, LANES)
+
+
+def live_slot_sums(x: torch.Tensor, slots: LiveSlots) -> torch.Tensor:
+    """The f64 forward: chunk sums (n_positions / 128, 128) f64 at the
+    positions ``slots`` reads, from x (1-D float64, at least ``n_cols``
+    long: unpadded, or the padded x2 flattened).
+
+    On CUDA tensors it launches the live-slot kernel of
+    ``csrc/gstream_spmv.cu`` on the current stream (or raises): only the
+    read positions are written, the rest of the output is left as
+    allocated; on CPU tensors it runs ``live_slot_sums_reference``.
+    ``live_slot_sums.launches`` counts launches."""
+    if x.device.type == "cpu":
+        return live_slot_sums_reference(x, slots)
+    if x.device.type != "cuda":
+        raise ValueError(f"live_slot_sums: unsupported device {x.device}")
+    _check_live(x, slots)
     lib = library().lib
-    with torch.cuda.device(x2.device):
-        out = torch.empty(n_tiles * P, LANES, dtype=torch.float64,
-                          device=x2.device)
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = lib.gstream_spmv_f64_launch(
-            ctypes.c_void_p(values.data_ptr()),
-            ctypes.c_void_p(meta.data_ptr()),
-            ctypes.c_void_p(step_window.data_ptr()),
-            ctypes.c_void_p(x2.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            n_tiles, T, G, P, ctypes.c_void_p(stream))
-    check(lib, rc, "gstream_chunk_sums_f64 launch")
-    gstream_chunk_sums_f64.launches += 1
-    return out
+    with torch.cuda.device(x.device):
+        out = torch.empty(slots.n_positions, dtype=torch.float64,
+                          device=x.device)
+        rc = lib.live_slots_f64_launch(
+            ctypes.c_void_p(slots.pos.data_ptr()),
+            ctypes.c_void_p(slots.rowptr.data_ptr()),
+            ctypes.c_void_p(slots.col.data_ptr()),
+            ctypes.c_void_p(slots.val.data_ptr()),
+            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+            slots.n_read,
+            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    check(lib, rc, "live_slot_sums launch")
+    live_slot_sums.launches += 1
+    return out.view(-1, LANES)
 
 
-gstream_chunk_sums_f64.launches = 0
+live_slot_sums.launches = 0
 
 
 class ForwardStream(nn.Module):

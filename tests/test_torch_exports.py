@@ -27,16 +27,16 @@ DIFFERENT = {
 # points
 ADDED = {
     "BSRDevice", "CGResult", "DF64FusedDevice", "DF64GStreamDevice",
-    "FinalRows", "FusedDevice", "GStreamDevice", "autotune_candidates",
-    "autotune_pack", "bicgstab", "bsr_partials", "bsr_spmv", "bsr_to_csr",
-    "cg", "cg_df64", "cg_step", "create_csr_hw_matrix",
-    "create_csr_hw_x_vector", "csr_to_bsr", "default_tolerance",
-    "delete_csr_hw_matrix", "delete_csr_hw_x_vector", "final_rows",
-    "final_rows_multi", "fused_spmm", "fused_spmv", "fused_spmv_f64", "gmres",
-    "gstream_chunk_sums", "gstream_chunk_sums_f64",
+    "FinalRows", "FusedDevice", "GStreamDevice", "LiveSlots",
+    "autotune_candidates", "autotune_pack", "bicgstab", "bsr_partials",
+    "bsr_spmv", "bsr_to_csr", "cg", "cg_df64", "cg_step",
+    "create_csr_hw_matrix", "create_csr_hw_x_vector", "csr_to_bsr",
+    "default_tolerance", "delete_csr_hw_matrix", "delete_csr_hw_x_vector",
+    "final_rows", "final_rows_multi", "fused_spmm", "fused_spmv",
+    "fused_spmv_f64", "gmres", "gstream_chunk_sums",
     "gstream_chunk_sums_multi", "gstream_chunk_sums_multi_f64",
-    "jacobi_iteration", "jacobi_preconditioner", "pcg", "pcg_df64",
-    "power_iteration", "spmm_df64", "spmm_gstream", "spmv_hw",
+    "jacobi_iteration", "jacobi_preconditioner", "live_slot_sums", "pcg",
+    "pcg_df64", "power_iteration", "spmm_df64", "spmm_gstream", "spmv_hw",
 }
 
 

@@ -11,7 +11,9 @@ tensors:
   packs     ``pack_fused_df64`` and ``pack_gstream_df64`` (with the legacy
             final) byte-identical to the JAX device's;
   #10       ``fused_spmv_reference`` in f64 vs ``_fused_df64_blocks``;
-  #11       ``gstream_chunk_sums_reference`` in f64 vs ``_df64_chunk_sums``;
+  #11       ``gstream_chunk_sums_reference`` in f64 vs ``_df64_chunk_sums``
+            (the device's forward over its live slots is held to it in
+            ``test_torch_live_slots.py``);
   #12       ``final_gather_reference`` in f64 vs ``_df64_final_sums``;
   #13       ``gstream_chunk_sums_multi_reference`` in f64 vs
             ``_df64_chunk_sums_multi``;
@@ -380,10 +382,7 @@ def test_wrappers_reject_what_the_f64_kernels_do_not_take():
     with pytest.raises(ValueError, match="x2"):
         d.stream(torch.zeros(d.meta.padded_cols // 128, 128))
     with pytest.raises(ValueError, match="float64"):
-        sg.gstream_chunk_sums_f64(d.stream.values.float(), d.stream.meta16,
-                                  d.stream.step_window,
-                                  torch.zeros(d.meta.padded_cols // 128, 128),
-                                  T=d.stream.T, G=d.stream.G, P=d.stream.P)
+        sg.live_slot_sums(torch.zeros(d.meta.padded_cols), d.slots)
     with pytest.raises(ValueError, match="legacy"):
         d.final.grid_multi(torch.zeros(d.meta.chunk_row.size, 2,
                                        dtype=torch.float64))

@@ -126,14 +126,22 @@ def test_classic_f64_kernels_match_plain_on_card(cuda, case):
     d = pf.DF64GStreamDevice.from_packed(*pf.pack_gstream_df64(m, G=G), cuda)
     assert regime(d), case
     x = np.random.default_rng(9).standard_normal(m.nr_cols)
+    xt = torch.as_tensor(x, device=cuda)
     x2 = d.prepare_x(x)
-    n_fwd = sg.gstream_chunk_sums_f64.launches
+    n_fwd = sg.live_slot_sums.launches
     n_fin = fr.final_rows.launches.copy()
-    ck = d.stream(x2)
+    ck = d.forward_live(xt)
     cr = d.stream(x2, sg.gstream_chunk_sums_reference)
     torch.cuda.synchronize()
-    assert sg.gstream_chunk_sums_f64.launches == n_fwd + 1
-    _agree(ck, cr)
+    assert sg.live_slot_sums.launches == n_fwd + 1
+    # the live-slot forward writes the positions the finish reads: there
+    # it is its plain version and the TPU-form plain version over the pack
+    pos = d.slots.pos.long()
+    _agree(ck.reshape(-1)[pos], cr.reshape(-1)[pos])
+    _agree(ck.reshape(-1)[pos],
+           d.forward_live(xt, sg.live_slot_sums_reference).reshape(-1)[pos])
+    _agree(d.forward_live(x2.reshape(-1)).reshape(-1)[pos],
+           ck.reshape(-1)[pos])
     if d.final is not None:
         yk = d.final.apply(cr)
         torch.cuda.synchronize()
@@ -162,6 +170,34 @@ def test_classic_f64_kernels_match_plain_on_card(cuda, case):
 
 
 @pytest.mark.gpu
+def test_live_slots_read_positions_without_slots_read_zero_on_card(cuda):
+    """A read position whose chunk holds no live slot (rows 10-59 hold
+    stored zeros only) is written as 0: the output is allocated, not
+    zeroed; the positions with slots hold their sums."""
+    m = _host.random_csr(1000, 3000, density=0.01, seed=1)
+    v = m.values.copy()
+    v[m.row_ptr[10]:m.row_ptr[60]] = 0.0
+    m = _host.CSRMatrix(m.row_ptr, m.col_ind, v, m.nr_rows, m.nr_cols)
+    d = pf.DF64GStreamDevice.from_packed(*pf.pack_gstream_df64(m, G=4),
+                                         cuda)
+    sl = d.slots
+    empty = sl.rowptr.diff() == 0
+    assert bool(empty.any()) and not bool(empty.all())
+    pos = sl.pos.long()
+    x = torch.as_tensor(np.random.default_rng(2).standard_normal(m.nr_cols),
+                        device=cuda)
+    for _ in range(2):
+        # garbage in the allocator's blocks the output may reuse
+        torch.full((sl.n_positions,), float("nan"), dtype=torch.float64,
+                   device=cuda)
+        got = d.forward_live(x).reshape(-1)[pos]
+        torch.cuda.synchronize()
+        assert not bool(got[empty].any())
+        _agree(got, d.forward_live(
+            x, sg.live_slot_sums_reference).reshape(-1)[pos])
+
+
+@pytest.mark.gpu
 def test_classic_f64_segment_sum_route_on_card(cuda, monkeypatch):
     m = _host.random_csr(3000, 6000, density=0.004, seed=5)
     monkeypatch.setattr(fl._FinalLevel, "build",
@@ -185,14 +221,14 @@ def test_sparse_matrix_f64_on_card_matches_gold(cuda, block_cols):
     fused = isinstance(sm.device_module, sf.DF64FusedDevice)
     assert fused == (block_cols >= 16384)
     x = np.random.default_rng(0).standard_normal(m.nr_cols)
-    counts = (sf.fused_spmv_f64.launches, sg.gstream_chunk_sums_f64.launches,
+    counts = (sf.fused_spmv_f64.launches, sg.live_slot_sums.launches,
               sp.gstream_chunk_sums_multi_f64.launches)
     y = sm @ x
     X = np.random.default_rng(1).standard_normal((m.nr_cols, 4))
     Y = sm @ X
     torch.cuda.synchronize()
     assert y.device.type == "cuda" and Y.dtype == torch.float64
-    after = (sf.fused_spmv_f64.launches, sg.gstream_chunk_sums_f64.launches,
+    after = (sf.fused_spmv_f64.launches, sg.live_slot_sums.launches,
              sp.gstream_chunk_sums_multi_f64.launches)
     if fused:
         assert after[0] == counts[0] + 5

@@ -132,7 +132,8 @@ def test_f64_device_through_final_rows_on_card(cuda):
     g = _host.spmv_gold(m, x)
     tol = _host.default_tolerance(np.float64, m.nr_nzeros / m.nr_rows)
     assert _host.verification(g, y.cpu().numpy(), *tol) == 0
-    vec = d.positions(d.stream(d.prepare_x(x)))
+    # the forward over the live slots writes the positions the final reads
+    vec = d.positions(d.forward_live(torch.as_tensor(x, device=cuda)))
     _agree(d.final.apply(vec), d.final.apply(vec, final_rows_reference))
 
 

@@ -1,5 +1,6 @@
 """The fused devices' call on the CPU: one plan built at upload, live finish
-counts, the spills at their flat positions in the slab blocks, x unpadded.
+counts, the spills at their flat positions in the slab blocks, x unpadded;
+and the f32 device's SpMM call (``FusedDevice.spmm``) on the same plan.
 
 ``FusedDevice.spmv`` (f32) and ``DF64FusedDevice.spmv`` (f64) run, on CPU
 tensors, ``spmv_blocks_reference``: the plain version of the card's one
@@ -7,7 +8,11 @@ launch.  Each regime of ``test_torch_fused.REGIMES`` and each of its
 ``RING_EDGES`` holds it to the old formulation of the call, the free
 wrapper's plain version on the padded x (``fused_spmv_reference``), y's
 rows read back (``_rows``) and the spills added by row with
-``index_add_``.  Tolerances: rtol 1e-5, atol 1e-5 *
+``index_add_``.  ``FusedDevice.spmm`` runs ``spmm_blocks_reference`` on
+CPU tensors, the plain version of its one launch (X unpadded, the live
+counts, the spills' k planes at their flat positions), held likewise to the
+free SpMM wrapper's plain version (``fused_spmm_reference``) on the padded
+X and to ``spmm_gold``.  Tolerances: rtol 1e-5, atol 1e-5 *
 max(1, max|y|) in f32; 1e-12 in f64 (the same terms, summed in another
 order at most).  No JAX run here: ``test_torch_fused.py`` and
 ``test_torch_f64.py`` hold the devices to the JAX package.
@@ -20,6 +25,7 @@ import pytest
 import torch
 
 from sparsetpu_torch import _host
+from sparsetpu_torch.formats.gold import spmm_gold
 from sparsetpu_torch.kernels import spmv_fused as sf
 from test_torch_fused import (RING_EDGES, REGIMES,  # noqa: F401
                               native_engines_first)
@@ -169,3 +175,53 @@ def test_strided_x_and_f64_columns():
     for j in range(3):
         _close(d.spmv(X[:, j]), _old_call(d, X[:, j].numpy()))
         _close(Y[:, j], _old_call(d, X[:, j].numpy()))
+
+
+def _old_call_multi(d, X):
+    """The SpMM call as the parent formed it: padded X, the free wrapper's
+    plain version, Y's rows, then the spills' k planes by row."""
+    Xp = d.prepare_x_multi(X)
+    Y = d._rows(d.blocks_multi(Xp, sf.fused_spmm_reference)).clone()
+    rows = torch.as_tensor(d.meta.spill_row, dtype=torch.int64)
+    if rows.numel():
+        Y.index_add_(0, rows, d.spill_val[:, None] * Xp[d.spill_col])
+    return Y
+
+
+@pytest.mark.parametrize("k", [1, 3, 8])
+@pytest.mark.parametrize("case", list(REGIMES) + ["T1_two_stage", "T8"])
+def test_device_spmm_matches_old_formulation(case, k):
+    """Every regime (fin_direct 0 and 1, spills, non-uniform and empty
+    trailing slabs) and two ring edges: the one-launch SpMM's plain
+    version against the parent's formulation and the gold; X unpadded,
+    packed, or a tensor, read alike."""
+    m, d = _device(case, torch.float32)
+    X = np.random.default_rng(k).standard_normal((m.nr_cols, k))
+    ref = _old_call_multi(d, X)
+    Y = d.spmm(X)
+    _close(Y, ref)
+    _close(d.spmm(d.prepare_x_multi(X), x_is_packed=True), ref)
+    _close(d.spmm(torch.as_tensor(X, dtype=torch.float32)), ref)
+    G = spmm_gold(m, X)
+    atol = 1e-5 * max(1.0, float(np.abs(G).max()))
+    np.testing.assert_allclose(Y.numpy(), G, rtol=1e-4, atol=atol)
+
+
+def test_spmm_live_counts_cut_the_finish():
+    """Counts of 0 finish nothing on k planes either."""
+    m, d = _device("q1_two_stage_sgrp2", torch.float32)
+    p = dataclasses.replace(d.meta, fin2_cnt=np.zeros_like(d.meta.fin2_cnt))
+    Y = sf.FusedDevice.from_packed(p, "cpu").spmm(np.ones((m.nr_cols, 3)))
+    assert tuple(Y.shape) == (m.nr_rows, 3) and not Y.any()
+
+
+def test_spmm_call_rejects_wrong_x():
+    m, d = _device("q4", torch.float32)
+    with pytest.raises(ValueError, match="shape"):
+        d.spmm(np.ones((m.nr_cols + 1, 2)))
+    with pytest.raises(ValueError, match="shape"):
+        d.spmm(torch.ones(m.nr_cols, 2), x_is_packed=True)
+    with pytest.raises(ValueError, match="shape"):
+        d.spmm(torch.ones(m.nr_cols))
+    with pytest.raises(ValueError, match="tensor"):
+        d.spmm(torch.ones(m.nr_cols, 2, dtype=torch.float64))

@@ -20,7 +20,7 @@ from sparsetpu_torch.kernels import final_rows as fr
 from sparsetpu_torch.kernels import spmm as sp
 from sparsetpu_torch.kernels import spmv_fused as sf
 from sparsetpu_torch.kernels import spmv_gstream as sg
-from test_torch_fused import REGIMES
+from test_torch_fused import REGIMES, RING_EDGES
 
 
 def _close_to(y, ref):
@@ -66,6 +66,61 @@ def test_fused_spmm_matches_plain_on_card(cuda, case, k):
     assert sf.fused_spmm.launches == before + 1
     _close_to(yk, d.blocks_multi(Xp, sf.fused_spmm_reference))
     _gold_ok(m, X, d.spmm(Xp, x_is_packed=True))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(REGIMES) + ["T1_two_stage",
+                                                  "T1_fin_direct", "T8"])
+@pytest.mark.parametrize("k", [1, 3, 4, 8, 64])
+def test_fused_spmm_device_call_matches_plain_on_card(cuda, case, k):
+    """The device's one launch (X unpadded, live counts, spills in the
+    launch) against its plain version: plane vectors of 1 (k = 1, 3) and 4
+    floats, several sweeps of the registers' 8 planes (k = 64), the ring's
+    edges (T = 1 and 8); one launch a call."""
+    make, kw, regime = {**REGIMES, **RING_EDGES}[case]
+    m = make()
+    p = _host.pack_fused(m, **kw)
+    assert p is not None and regime(p), case
+    d = sf.FusedDevice.from_packed(p, cuda)
+    X = torch.as_tensor(_X(m.nr_cols, k, seed=k), dtype=torch.float32,
+                        device=cuda)
+    ref = d.spmm_blocks_reference(X)
+    before = sf.fused_spmm.launches
+    yk = d.spmm_blocks(X)
+    torch.cuda.synchronize()
+    assert sf.fused_spmm.launches == before + 1
+    _close_to(yk, ref)
+    _gold_ok(m, X.cpu().numpy().astype(np.float64), d.spmm(X))
+    # a strided X and a packed one read as their values
+    _close_to(d.spmm(X.t().contiguous().t()), d.spmm(X))
+    Xp = d.prepare_x_multi(X)
+    _close_to(d.spmm(Xp, x_is_packed=True), d.spmm(X))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["q1_two_stage_sgrp2",
+                                  "q8_spills_nonuniform_slabs"])
+def test_fused_spmm_two_streams_on_card(cuda, case):
+    """Each call's own workspace: calls on two streams at once give the
+    plain version's blocks."""
+    make, kw, regime = REGIMES[case]
+    m = make()
+    p = _host.pack_fused(m, **kw)
+    assert regime(p)
+    d = sf.FusedDevice.from_packed(p, cuda)
+    Xs = [torch.as_tensor(_X(m.nr_cols, 8, seed=4 + j), dtype=torch.float32,
+                          device=cuda) for j in range(2)]
+    refs = [d.spmm_blocks_reference(X) for X in Xs]
+    streams = [torch.cuda.Stream() for _ in Xs]
+    torch.cuda.synchronize()
+    ys = []
+    for _ in range(3):
+        for X, st_ in zip(Xs, streams):
+            with torch.cuda.stream(st_):
+                ys.append(d.spmm_blocks(X))
+    torch.cuda.synchronize()
+    for j, y in enumerate(ys):
+        _close_to(y, refs[j % 2])
 
 
 KS = [1, 3, 4, 8, 21, 72]     # plane vectors of 1, 2 and 4 floats
@@ -182,9 +237,10 @@ def test_sparse_matrix_spmm_on_card(cuda, make, cfg):
 
 @pytest.mark.gpu
 def test_spmm_budget_is_the_cards(cuda):
-    """The fused SpMM takes k planes while k X planes fit half the L2 and
-    one plane's scratch fits the opt-in shared memory; past it ``@`` runs
-    the classic k-plane SpMM on a classic device of the source CSR."""
+    """The fused SpMM takes k planes while k X planes fit half the L2 (its
+    scratch lives in a workspace: shared memory sets no limit); past it
+    ``@`` runs the classic k-plane SpMM on a classic device of the source
+    CSR."""
     m = _host.random_csr(2000, 100_000, 0.0005, seed=1, dtype=np.float32)
     sm = st.SparseMatrix(m, device=cuda)
     d = sm.fused_device
