@@ -125,8 +125,8 @@ and the measurement path (``bench/micro.py``, ``pack/rates.py``,
                    ``csrc/micro_ladder.cu`` (stream, lane, dual, tilebase,
                    window-G from L2 and from shared memory, G = 1..32)
                    timed beside its bound, then held to ``ladder_reference``
-                   on the same inputs, and each gather stage beside
-                   cuSPARSE on its incidence with xw;
+                   on the same inputs, and the lane and each gather stage
+                   beside cuSPARSE on its incidence with xw;
   rates            ``refresh_rates`` over the 24 (G, Q) at 32768 tiles (the
                    forward kernel #3, counted as ``rates_forward``), the
                    cache in a temporary directory; #3 at two combos against
@@ -173,6 +173,24 @@ and the measurement path (``bench/micro.py``, ``pack/rates.py``,
                    (``-Xptxas -v``, ``cuobjdump -sass``);
   bench entry      ``python -m sparsetpu_torch.bench`` in a subprocess: its
                    last line parses, value > 0, 0 gate errors.
+
+and the distributed SpMV (``sparsetpu_torch/dist/``), in ranks started by
+``dist.launch.run_ranks``, before the bench entry:
+
+  dist             one rank over NCCL (a process group of world size 1),
+                   then four ranks sharing the card over gloo: the
+                   all-gather, ring, multi-host and auto schedules at the
+                   headline and the roadNet-CA stand-in, and the f64
+                   shards at the headline in f64, at full width; each
+                   rank's launches counted (#3's window forward and the
+                   final; #11's live slots and the f64 final), y against
+                   the gold on rank 0, rank 0's forward and final against
+                   their plain versions; at one rank the sharded call
+                   beside the band's own ``spmv``, ``SparseMatrix @ x`` and
+                   cuSPARSE, and its pieces (x's segment, the all-gathers);
+                   ``cg`` and ``cg_df64`` over the shards at FEM-3D Poisson
+                   32^3; ``python -m sparsetpu_torch.bench.scaling --json``
+                   in a subprocess, every row at 0 verify errors.
 
 Each main path is driven once through the entry points a user calls, with
 every kernel's launch count set to 0 just before and read just after; a
@@ -532,6 +550,7 @@ class Smoke:
         self.hbm = hbm
         self.records = {}                 # name -> the JSON entry
         self.calls = {}                   # tag -> whole_call_multi's ms
+        self.whole = {}                   # tag -> whole_call's ms
         self.launches = {k: 0 for k in KERNELS}
 
     # -- timing -------------------------------------------------------------
@@ -1166,6 +1185,7 @@ class Smoke:
         ms = self.call_ms(lambda: sm @ xt, repeats=20)
         a = self.csr(m)
         lib_ms = self.call_ms(lambda: a @ xt, repeats=20)
+        self.whole[tag] = (ms, lib_ms)
         print(f"  {tag}: SparseMatrix @ x {ms:.4f} ms a call "
               f"({m.nr_nzeros / ms / 1e6:.2f} Gnnz/s) | torch.sparse_csr "
               f"@ x (cuSPARSE) {lib_ms:.4f} ms "
@@ -1939,8 +1959,9 @@ def spgemm_main(s, small, t0):
 def ladder_main(s, small, t0):
     """#15 on the card: ``bench_ladder`` as the main path (every stage's
     kernel launched), then each stage held to ``ladder_reference`` on the
-    same inputs, beside its bound and, for ``stream``, one ``torch.sum``
-    of the value stream."""
+    same inputs, beside its bound and one library call: for ``stream``
+    ``torch.sum`` of the value stream, for every other stage cuSPARSE on
+    its incidence with xw."""
     torch, micro = s.torch, s.micro
     n, T = (256 if small else micro.LADDER_TILES), 16
     tag = f"micro ladder ({n} tiles, {T} a block)"
@@ -1966,7 +1987,7 @@ def ladder_main(s, small, t0):
             v = val.view(n, 8, 128)
             _agree(torch.sum(v, 1) * xw[0, 0], yr)
             lib_ms = s.call_ms(lambda: torch.sum(v, 1))
-        elif stage != "lane":
+        else:
             key = (stage.split("-")[0], G)
             if key not in gather_lib:
                 gather_lib[key] = _ladder_library_ms(s, args, G, T, yr)
@@ -1978,14 +1999,22 @@ def ladder_main(s, small, t0):
 
 
 def _ladder_library_ms(s, args, G, T, ref):
-    """cuSPARSE's product of one gather stage's incidence with xw (tile
-    output by xw position, ``ladder_index``'s addresses, zero values
-    dropped), checked against the plain output ``ref``; its time."""
+    """cuSPARSE's product of one stage's incidence with xw (tile output by
+    xw position, zero values dropped), checked against the plain output
+    ``ref``; its time.  A gather stage's slots read ``ladder_index``'s
+    addresses; the lane stage's read xw[0, 0], each with the value its
+    route picks (a row's 8 slots coalesce into one entry)."""
     torch, d = s.torch, s.dev
-    i, ok = s.micro.ladder_index(*args, G=G, T=T)
+    stage, val, idx = args[:3]
+    if stage == "lane":
+        j = idx.view(-1, 8, 128).long() & 127
+        vals = torch.gather(val.view(j.shape), 2, j)
+        i, ok = torch.zeros_like(j), torch.ones_like(j, dtype=torch.bool)
+    else:
+        i, ok = s.micro.ladder_index(*args, G=G, T=T)
+        vals = val.view(i.shape)
     rows = (torch.arange(i.shape[0], device=d).view(-1, 1, 1) * 128
             + torch.arange(128, device=d)).expand_as(i)
-    vals = args[1].view(i.shape)
     keep = ok & (vals != 0)
     xw = args[4]
     return s.library_spmv(rows[keep], i[keep], vals[keep],
@@ -2657,6 +2686,316 @@ def select_chains_main(s, table, small, t0):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the distributed SpMV (sparsetpu_torch/dist/): ranks over NCCL and gloo
+# ---------------------------------------------------------------------------
+
+DIST_SCHEDULES = ("allgather", "ring", "multihost", "auto")
+# FEM-3D Poisson's grid for the solves over the shards (cg, cg_df64)
+DIST_FEM_N = 32
+
+
+def _save_csr(path, m):
+    np.savez(path, row_ptr=m.row_ptr, col_ind=m.col_ind, values=m.values,
+             shape=np.array([m.nr_rows, m.nr_cols]))
+
+
+def _load_csr(h, path):
+    with np.load(path) as f:
+        return h.CSRMatrix(f["row_ptr"], f["col_ind"], f["values"],
+                           int(f["shape"][0]), int(f["shape"][1]))
+
+
+class _DistRank:
+    """One rank of the dist phase: its modules, device and launch
+    counters."""
+
+    def __init__(self, rank, world, device):
+        import torch
+        from sparsetpu_torch import _host, dist
+        from sparsetpu_torch.bench.harness import call_ms
+        from sparsetpu_torch.kernels import final_rows, spmv_gstream
+        self.torch, self.h, self.dist = torch, _host, dist
+        self.fr, self.sg, self._call_ms = final_rows, spmv_gstream, call_ms
+        self.rank, self.world, self.dev = rank, world, device
+
+    def zero(self):
+        self.sg.gstream_chunk_sums.launches.clear()
+        self.sg.live_slot_sums.launches = 0
+        self.fr.final_rows.launches.clear()
+
+    def counts(self):
+        f = self.fr.final_rows.launches
+        return {"gstream_spmv_window":
+                self.sg.gstream_chunk_sums.launches["window"],
+                "final_rows": f["short"] + f["long"],
+                "live_slots_f64": self.sg.live_slot_sums.launches,
+                "final_rows_f64": f["short_f64"] + f["long_f64"]}
+
+    def call_ms(self, fn, repeats=20):
+        return self._call_ms(fn, self.dev, repeats=repeats)
+
+    def sync(self):
+        if self.dev.type == "cuda":
+            self.torch.cuda.synchronize()
+
+    def path(self, tag, build, m, x, expected):
+        """Pack this rank's band with ``build`` and drive its ``spmv`` once
+        as the main path (counts set to 0 just before, read just after;
+        each expected kernel must have launched on this rank); y against
+        the gold on rank 0; then the launches of one call and its time
+        (every rank calls alike: the calls are collective)."""
+        torch = self.torch
+        f64 = m.values.dtype == np.float64
+        xt = torch.as_tensor(x, dtype=torch.float64 if f64
+                             else torch.float32, device=self.dev)
+        t0 = time.perf_counter()
+        sh = build(m, device=self.dev)
+        self.sync()
+        pack_s = time.perf_counter() - t0
+        self.zero()
+        y = sh.spmv(xt)
+        self.sync()
+        counts = self.counts()
+        missing = sorted(k for k in expected if counts[k] < 1)
+        if missing and self.dev.type == "cuda":
+            raise RuntimeError(f"{tag}: rank {self.rank} did not launch "
+                               f"{missing} (counts {counts})")
+        if tuple(y.shape) != (m.nr_rows,) or not bool(y.isfinite().all()):
+            raise RuntimeError(f"{tag}: bad y, shape {tuple(y.shape)}")
+        rec = {"tag": tag, "kind": type(sh).__name__, "pack_s": pack_s,
+               "counts": counts}
+        if self.rank == 0:
+            yh = y.cpu().numpy()
+            _gold_errors(self.h, m, x, yh, np.float64 if f64
+                         else np.float32)
+            rec["gold_max_abs"] = float(np.abs(
+                yh - self.h.spmv_gold(m, x)).max())
+        self.zero()
+        sh.spmv(xt)
+        self.sync()
+        rec["counts_a_call"] = {k: v for k, v in self.counts().items() if v}
+        rec["ms"] = self.call_ms(lambda: sh.spmv(xt))
+        return sh, xt, rec
+
+    def band_kernels(self, sh, xt, rec):
+        """Rank 0's kernels against their plain versions on its band's own
+        inputs (RTOL): the forward (the live-slot forward in f64; stage 0
+        on the ring) and the final; with one rank, the band's own
+        ``spmv`` a call (the whole matrix on one classic device)."""
+        torch, sg, fr = self.torch, self.sg, self.fr
+        if isinstance(sh, self.dist.RingShardedSpmv):
+            xseg = sh.x_segment(xt)
+            cps = sh.tiles_per_step * sh.planes
+            wk = torch.zeros(sh.stage_off[-1] * cps, 128, device=self.dev)
+            wr = torch.zeros_like(wk)
+            sh.stage(0, xseg, wk)
+            sh.stage(0, xseg, wr, sg.gstream_chunk_sums_reference)
+            self.sync()
+            rec["forward_err"] = _agree(wk, wr)
+            rec["stage_steps"] = sh.stage_steps
+            return
+        band = sh.band
+        x2 = band.prepare_x(xt)
+        if band.dtype == torch.float64:
+            pos = band.slots.pos.long()
+            ck = band.forward_live(xt)
+            cr = band.forward_live(xt, sg.live_slot_sums_reference)
+            self.sync()
+            rec["forward_err"] = _agree(ck.reshape(-1)[pos],
+                                        cr.reshape(-1)[pos])
+        else:
+            ck, cr = band.stream(x2), band.stream(
+                x2, sg.gstream_chunk_sums_reference)
+            self.sync()
+            rec["forward_err"] = _agree(ck, cr)
+        vec = cr.reshape(-1)
+        yk, yr = band.final.apply(vec), band.final.apply(
+            vec, fr.final_rows_reference)
+        self.sync()
+        rec["final_err"] = _agree(yk, yr)
+        if self.world == 1:
+            rec["band_ms"] = self.call_ms(
+                lambda: band.spmv(x2, x_is_packed=True))
+            self.split(sh, xt, x2, rec)
+
+    def split(self, sh, xt, x2, rec):
+        """At one rank, the sharded call and its pieces, each a call and
+        back to back (ms): x's segment, the two all-gathers, the band's
+        own ``spmv`` and the local body (segment in, band out)."""
+        from sparsetpu_torch.bench.harness import stream_ms
+        from sparsetpu_torch.dist import comm
+        xseg = sh.x_segment(xt)
+        yb = self.torch.zeros(sh.rows_per_part, dtype=sh.real,
+                              device=self.dev)
+        pieces = {"spmv": lambda: sh.spmv(xt),
+                  "spmv_local": lambda: sh.spmv_local(xseg),
+                  "band spmv": lambda: sh.band.spmv(x2, x_is_packed=True),
+                  "x_segment": lambda: sh.x_segment(xt),
+                  "all_gather x": lambda: comm.all_gather(xseg, sh.group),
+                  "all_gather y": lambda: comm.all_gather(yb, sh.group)}
+        rec["split_ms"] = {
+            k: (self.call_ms(fn, repeats=50),
+                stream_ms(fn, self.dev) if self.dev.type == "cuda"
+                else float("nan"))
+            for k, fn in pieces.items()}
+
+    def cusparse_ms(self, m, xt):
+        torch = self.torch
+        a = torch.sparse_csr_tensor(
+            torch.from_numpy(m.row_ptr.astype(np.int64)),
+            torch.from_numpy(m.col_ind.astype(np.int64)),
+            torch.from_numpy(m.values), (m.nr_rows, m.nr_cols)).to(self.dev)
+        return self.call_ms(lambda: a @ xt)
+
+
+def _dist_rank(rank, world, device, paths, fem_n):
+    """The dist phase on one rank: every schedule at the headline and the
+    roadNet-CA stand-in, the f64 shards at the headline in f64, and (one
+    rank) the solves over the shards.  Returns the rank's records."""
+    r = _DistRank(rank, world, device)
+    torch, d, h = r.torch, r.dist, r.h
+    group = d.make_mesh(world)
+    builds = {"allgather": d.shard_spmv, "ring": d.ring_shard_spmv,
+              "multihost": d.shard_spmv_multihost,
+              "auto": d.shard_spmv_auto}
+    f32 = {"gstream_spmv_window", "final_rows"}
+    recs = []
+    for name in ("headline", "roadNet-CA"):
+        m = _load_csr(h, paths[name])
+        x = np.random.default_rng(0).standard_normal(m.nr_cols)
+        for kind in DIST_SCHEDULES:
+            sh, xt, rec = r.path(f"{name} {kind}", lambda mat, device: (
+                builds[kind](mat, group, device=device)), m, x, f32)
+            if rank == 0 and kind in ("allgather", "ring"):
+                r.band_kernels(sh, xt, rec)
+            if rank == 0 and world == 1 and kind == "allgather":
+                rec["cusparse_ms"] = r.cusparse_ms(m, xt)
+            recs.append(rec)
+            del sh
+        del m
+    m = _load_csr(h, paths["headline f64"])
+    x = np.random.default_rng(0).standard_normal(m.nr_cols)
+    sh, xt, rec = r.path("headline f64 df64", lambda mat, device: (
+        d.shard_spmv_df64(mat, group, device=device)), m, x,
+        {"live_slots_f64", "final_rows_f64"})
+    if rank == 0:
+        r.band_kernels(sh, xt, rec)
+        if world == 1:
+            rec["cusparse_ms"] = r.cusparse_ms(m, xt)
+    recs.append(rec)
+    del sh, m
+    if world == 1:
+        from sparsetpu_torch.solvers.cg import cg, cg_df64
+        for dtype, solve, tol in ((np.float32, cg, 1e-5),
+                                  (np.float64, cg_df64, 1e-10)):
+            m = h.fem_poisson_3d(fem_n, dtype=dtype)
+            build = d.shard_spmv if dtype == np.float32 else \
+                d.shard_spmv_df64
+            sh = build(m, group, device=device)
+            b = torch.ones(m.nr_rows, dtype=getattr(torch, np.dtype(
+                dtype).name), device=device)
+            r.zero()
+            t0 = time.perf_counter()
+            res = solve(sh.spmv, b, tol=tol, maxiter=2000)
+            r.sync()
+            dt = time.perf_counter() - t0
+            xs = res.x.cpu().numpy().astype(np.float64)
+            rel = float(np.linalg.norm(1.0 - h.spmv_gold(m, xs))
+                        / np.sqrt(m.nr_rows))
+            # the f32 solve stops on its f32 residual: allow its rounding
+            lim = tol * (10.0 if dtype == np.float32 else 1.0)
+            if not rel <= lim:
+                raise RuntimeError(f"{solve.__name__} over the shards: "
+                                   f"relative residual {rel:.3e} > {lim}")
+            recs.append({"tag": f"{solve.__name__} FEM-3D Poisson "
+                         f"{fem_n}^3 ({m.nr_rows} rows, {m.nr_nzeros} nnz)",
+                         "iterations": res.iterations, "rel_residual": rel,
+                         "s": dt, "counts": r.counts()})
+    return recs
+
+
+def _dist_report(s, world, backend, recs_by_rank):
+    """Print the ranks' records and add their main paths' launches to the
+    run's counts."""
+    for rank, recs in enumerate(recs_by_rank):
+        for rec in recs:
+            for k, v in rec["counts"].items():
+                s.launches[k] += v
+            if rank:
+                continue
+            extra = ", ".join(
+                f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}"
+                for k, v in rec.items()
+                if k not in ("tag", "counts", "split_ms"))
+            print(f"  dist [{world} {backend} rank(s)] {rec['tag']}: "
+                  f"{extra}; main-path launches "
+                  f"{ {k: v for k, v in rec['counts'].items() if v} }",
+                  flush=True)
+
+
+def dist_main(s, paths, small, t0):
+    """The distributed SpMV through its entry points, in ranks started by
+    ``dist.launch.run_ranks``: one rank over NCCL (a real process group of
+    world size 1), then four ranks sharing the one card over gloo, each at
+    full width; then ``python -m sparsetpu_torch.bench.scaling --json``.
+    NCCL refuses two ranks on one device (NCCL 2.28.9: ncclInvalidUsage,
+    "Duplicate GPU detected" at the first collective), so the ranks that
+    share the card join by gloo, whose collectives carry their CUDA
+    tensors through pinned host memory (``dist/comm.py``)."""
+    import subprocess
+    from sparsetpu_torch.dist import run_ranks
+    fem_n = 12 if small else DIST_FEM_N
+    # a CPU rehearsal joins its one rank by gloo
+    one = "nccl" if s.dev.type == "cuda" else "gloo"
+    whole = {"headline allgather": "headline",
+             "roadNet-CA allgather": "wide x (roadNet-CA)",
+             "headline f64 df64": "headline f64"}
+    for world, backend in ((1, one), (4, "gloo")):
+        t1 = time.perf_counter()
+        recs = run_ranks(_dist_rank, world, backend, paths, fem_n,
+                         device=s.dev, timeout=900)
+        _dist_report(s, world, backend, recs)
+        if world == 1:
+            for rec in recs[0]:
+                if "band_ms" in rec:
+                    sm_ms = s.whole.get(whole[rec["tag"]], (float("nan"),))
+                    print(f"  dist P = 1 [{rec['tag']}]: sharded spmv "
+                          f"{rec['ms']:.4f} ms a call | the band's "
+                          f"spmv (the whole matrix on one classic device) "
+                          f"{rec['band_ms']:.4f} | SparseMatrix @ x "
+                          f"{sm_ms[0]:.4f} (its phase) | cuSPARSE "
+                          f"{rec['cusparse_ms']:.4f} | split, ms a call "
+                          f"(back to back): " + ", ".join(
+                              f"{k} {a:.4f} ({b:.4f})" for k, (a, b) in
+                              rec["split_ms"].items()), flush=True)
+        else:
+            print("  dist: four ranks sharing one card: no scaling figure "
+                  "(" + "; ".join(f"{rec['tag']} {rec['ms']:.4f} ms"
+                                  for rec in recs[0] if "ms" in rec) + ")",
+                  flush=True)
+        print(f"phase dist ({world} {backend} rank(s)): "
+              f"{time.perf_counter() - t1:.1f} s", flush=True)
+    t1 = time.perf_counter()
+    argv = [sys.executable, "-m", "sparsetpu_torch.bench.scaling", "--json"]
+    if s.dev.type != "cuda":
+        argv += ["--device", "cpu", "--rows-per-dev", "2000"]
+    out = subprocess.run(argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        raise RuntimeError(f"scaling: rc {out.returncode}, stdout "
+                           f"{out.stdout[-2000:]!r}, stderr "
+                           f"{out.stderr[-2000:]!r}")
+    rep = json.loads(lines[-1])
+    if not rep["weak_scaling"] or any(
+            row["verify_errors"] for row in rep["weak_scaling"]):
+        raise RuntimeError(f"scaling: {lines[-1]}")
+    print(f"scaling ({' '.join(argv[1:])}): {lines[-1]}", flush=True)
+    print(f"phase dist scaling: {time.perf_counter() - t1:.1f} s", flush=True)
+    print(f"phase dist: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def bench_entry(s, t0):
     """``python -m sparsetpu_torch.bench`` in a subprocess (``--device cpu
     --small`` on a CPU rehearsal): its last line parses, value > 0, the
@@ -2739,6 +3078,10 @@ def run(device, hbm: float, small: bool = False):
     rehearsal of the control flow, not a measurement)."""
     s = Smoke(device, hbm)
     st, h, fused, sg = s.st, s.h, s.fused, s.sg
+    # the main paths' matrices, kept for the dist phase's ranks
+    keep = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    paths = {name: os.path.join(keep.name, f"{i}.npz") for i, name in
+             enumerate(("headline", "roadNet-CA", "headline f64"))}
 
     t0 = time.perf_counter()
     fused_regimes(s)
@@ -2759,6 +3102,7 @@ def run(device, hbm: float, small: bool = False):
         lambda: h.random_csr(20_000 if small else 200_000, 100_000,
                              density=0.0005, seed=1, dtype=np.float32),
         fused_only, t0)
+    _save_csr(paths["headline"], m)
     lib_ms = s.whole_call(sm, m, xt, "headline")
     # times first: a profiler trace slows the host's later launches
     s.fused_kernel(sm.fused_device, sm.prepare_x(x), "headline", lib_ms)
@@ -2849,6 +3193,7 @@ def run(device, hbm: float, small: bool = False):
         else (lambda: road_net_ca(h))
     m, x, xt, sm, _ = main_path(s, "wide x (roadNet-CA)", road,
                                 classic_only, t0)
+    _save_csr(paths["roadNet-CA"], m)
     s.whole_call(sm, m, xt, "wide x (roadNet-CA)")
     s.profile("wide x (roadNet-CA)", lambda: sm @ xt)
     s.gstream(sm.device_module, xt, "wide x (roadNet-CA)")
@@ -2952,6 +3297,7 @@ def run(device, hbm: float, small: bool = False):
         lambda: h.random_csr(20_000 if small else 200_000, 100_000,
                              density=0.0005, seed=1, dtype=np.float64),
         fused_f64, t0)
+    _save_csr(paths["headline f64"], m)
     lib_ms = s.whole_call(sm, m, xt, "headline f64")
     s.fused_kernel(sm.device_module, sm.prepare_x(x), "headline f64", lib_ms)
     s.profile("headline f64", lambda: sm @ xt)
@@ -3006,6 +3352,8 @@ def run(device, hbm: float, small: bool = False):
     fused_stages_main(s, small, time.perf_counter())
     fused_proto_main(s, small, time.perf_counter())
     select_chains_main(s, table, small, time.perf_counter())
+    dist_main(s, paths, small, time.perf_counter())
+    keep.cleanup()
     bench_entry(s, time.perf_counter())
 
     missing = sorted(set(KERNELS) - set(s.records))

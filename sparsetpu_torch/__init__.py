@@ -18,8 +18,12 @@ Layer map:
               BSR, COO; SpGEMM's plan
   api/        pack()/spmv()/SparseMatrix and the reference-named host API
   solvers/    CG, PCG, BiCGSTAB, GMRES, power and Jacobi iterations
+  dist/       the distributed SpMV over ranks joined by
+              ``torch.distributed`` (imported on its own:
+              ``sparsetpu_torch.dist``)
   bench/      the main.cpp measurement protocol, CUDA-event timing, the
-              stage ladder, ``python -m sparsetpu_torch.bench``
+              stage ladder, ``python -m sparsetpu_torch.bench``, the
+              weak-scaling report (``bench.scaling``)
   utils/      configuration, device selection, card facts
 
 The top level names what ``sparsetpu`` names (``formats``, ``kernels``,

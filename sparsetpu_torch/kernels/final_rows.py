@@ -148,8 +148,38 @@ class FinalRows(nn.Module):
         row = torch.cat(rows) if rows else torch.zeros(0, dtype=torch.int32,
                                                        device=dev)
         idx = torch.cat(pos) if pos else torch.zeros_like(row)
+        return cls._sorted(row, idx, nr_rows, n_positions)
+
+    @classmethod
+    def from_chunk_row(cls, chunk_row, nr_rows: int,
+                       device) -> "FinalRows":
+        """The map of a pack's own chunk rows (``GStreamMatrix.chunk_row``
+        or any array of one row a position, ``nr_rows`` or past it for
+        none): every position that holds a row, ascending within its row.
+        Any final level built from that chunk_row (its live slots and its
+        spills) holds the same entries, a row's in (level, instance, tile,
+        sublane) order (``from_levels``); this map builds for every
+        placement, where a level may not.  Raises ``ValueError`` when the
+        positions do not fit int32."""
+        dev = torch.device(device)
+        cr = torch.as_tensor(np.asarray(chunk_row)).reshape(-1).to(
+            dev, torch.int64)
+        n_positions = cr.numel()
+        if n_positions > INT32_MAX or nr_rows >= INT32_MAX:
+            raise ValueError(f"n_positions {n_positions} or nr_rows "
+                             f"{nr_rows} does not fit int32")
+        pos = torch.nonzero((cr >= 0) & (cr < nr_rows)).squeeze(1)
+        return cls._sorted(cr[pos].to(torch.int32), pos.to(torch.int32),
+                           nr_rows, n_positions)
+
+    @classmethod
+    def _sorted(cls, row, idx, nr_rows: int,
+                n_positions: int) -> "FinalRows":
+        """The map of the entries (row[i], idx[i]), int32 on one device,
+        stably sorted by row."""
         row, order = torch.sort(row, stable=True)
-        rowptr = torch.zeros(nr_rows + 1, dtype=torch.int64, device=dev)
+        rowptr = torch.zeros(nr_rows + 1, dtype=torch.int64,
+                             device=row.device)
         rowptr[1:] = torch.cumsum(torch.bincount(row, minlength=nr_rows), 0)
         return cls(rowptr.to(torch.int32), idx[order].contiguous(),
                    n_positions)

@@ -138,7 +138,8 @@ def gstream_chunk_sums_reference(values, meta, step_window, x2, *, T: int,
 
 
 def gstream_chunk_sums(values, meta, step_window, x2, *, T: int, G: int,
-                       P: int, GL: int = 0, tile_base=None) -> torch.Tensor:
+                       P: int, GL: int = 0, tile_base=None,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The forward kernel: chunk sums (n_tiles*P, 128) f32.
 
     On CUDA tensors it launches ``csrc/gstream_spmv.cu`` on the current
@@ -146,11 +147,26 @@ def gstream_chunk_sums(values, meta, step_window, x2, *, T: int, G: int,
     ``gstream_chunk_sums_reference``.  ``gstream_chunk_sums.launches``
     counts launches by scheme: ``"window"`` (GL = 0) and ``"tile_base"``.
     f64 values run on the CPU only: on the card the f64 device's forward is
-    ``live_slot_sums``, which reads the pack's live slots alone."""
+    ``live_slot_sums``, which reads the pack's live slots alone.
+
+    The streams may be views of a larger pack cut at step boundaries (a
+    ring stage's steps).  ``out``, when given, is a contiguous (n_tiles*P,
+    128) tensor of the sums' type on x2's device (a range of a caller's
+    workspace) that receives the sums, and is returned."""
+    if out is not None:
+        n = step_window.shape[0] * T * P
+        want = torch.float64 if values.dtype == torch.float64 \
+            else torch.float32
+        if tuple(out.shape) != (n, LANES) or out.dtype != want or \
+                out.device != x2.device or not out.is_contiguous():
+            raise ValueError(f"out must be a contiguous {(n, LANES)} {want} "
+                             f"tensor on {x2.device}, got {out.dtype} "
+                             f"{tuple(out.shape)} on {out.device}")
     if x2.device.type == "cpu":
-        return gstream_chunk_sums_reference(values, meta, step_window, x2,
+        sums = gstream_chunk_sums_reference(values, meta, step_window, x2,
                                             T=T, G=G, P=P, GL=GL,
                                             tile_base=tile_base)
+        return sums if out is None else out.copy_(sums)
     if x2.device.type != "cuda":
         raise ValueError(f"gstream_chunk_sums: unsupported device "
                          f"{x2.device}")
@@ -162,7 +178,8 @@ def gstream_chunk_sums(values, meta, step_window, x2, *, T: int, G: int,
                              G=G, P=P, GL=GL)
     lib = library().lib
     with torch.cuda.device(x2.device):
-        out = torch.empty(n_tiles * P, LANES, device=x2.device)
+        if out is None:
+            out = torch.empty(n_tiles * P, LANES, device=x2.device)
         stream = torch.cuda.current_stream(x2.device).cuda_stream
         rc = lib.gstream_spmv_launch(
             ctypes.c_void_p(values.data_ptr()),
@@ -636,22 +653,15 @@ def _spills(final, nr_rows: int, n_positions: int):
     return pos, row
 
 
-class FinalMultiDevice(nn.Module):
-    """``_FinalLevelMulti`` on the device: y is the sum of one flat final
-    per group of <= 8 column blocks, and of their spills, all folded into
-    one ``FinalRows`` at upload from the groups' TPU tables, uploaded one
-    level at a time; ``levels`` are the groups (their ``tables`` and
-    ``grid`` upload them anew)."""
+class MapFinal(nn.Module):
+    """A final given as its map alone, ``rows`` (a ``FinalRows``, such as
+    a rank's band builds from its pack's chunk rows,
+    ``FinalRows.from_chunk_row``): ``apply`` and ``apply_multi`` as
+    ``FinalDevice``'s, with no TPU tables behind it."""
 
-    def __init__(self, final, nr_rows: int, n_positions: int, device):
+    def __init__(self, rows: FinalRows):
         super().__init__()
-        dev = require_device(device)
-        self.levels = nn.ModuleList(
-            FinalDevice(lvl, nr_rows, n_positions, dev, rows=False)
-            for lvl in final.levels)
-        self.rows = FinalRows.from_levels(
-            (lvl.tables(dev) for lvl in self.levels), nr_rows, n_positions,
-            dev)
+        self.rows = rows
 
     def apply(self, vec: torch.Tensor, kernel=None) -> torch.Tensor:
         """y (nr_rows,) through ``kernel`` (default the wrapper
@@ -665,8 +675,32 @@ class FinalMultiDevice(nn.Module):
         return (kernel or final_rows_multi)(vec, self.rows)
 
 
+class FinalMultiDevice(MapFinal):
+    """``_FinalLevelMulti`` on the device: y is the sum of one flat final
+    per group of <= 8 column blocks, and of their spills, all folded into
+    one ``FinalRows`` at upload from the groups' TPU tables, uploaded one
+    level at a time; ``levels`` are the groups (their ``tables`` and
+    ``grid`` upload them anew)."""
+
+    def __init__(self, final, nr_rows: int, n_positions: int, device):
+        dev = require_device(device)
+        levels = nn.ModuleList(
+            FinalDevice(lvl, nr_rows, n_positions, dev, rows=False)
+            for lvl in final.levels)
+        super().__init__(FinalRows.from_levels(
+            (lvl.tables(dev) for lvl in levels), nr_rows, n_positions, dev))
+        self.levels = levels
+
+
 def final_device(final, nr_rows: int, n_positions: int, device):
-    """The device module of a host final level."""
+    """The device module of a host final level, or of a ``FinalRows`` map
+    (moved to ``device``)."""
+    if isinstance(final, FinalRows):
+        if (final.nr_rows, final.n_positions) != (nr_rows, n_positions):
+            raise ValueError(f"the map has {final.nr_rows} rows and "
+                             f"{final.n_positions} positions, the pack "
+                             f"{nr_rows} and {n_positions}")
+        return MapFinal(final.to(require_device(device)))
     if isinstance(final, _FinalLevelMulti):
         return FinalMultiDevice(final, nr_rows, n_positions, device)
     if isinstance(final, (_FinalLevel, _FinalLevelV2)):
@@ -686,7 +720,8 @@ class GStreamDevice(nn.Module):
     precision" mode: half the value stream); x and every sum stay f32.
     ``values`` and ``plan`` replace the pack's value plane and its
     ``build_finish`` plan (the f64 device passes its float64 plane and a
-    legacy final); float64 values make x, every sum and y float64."""
+    legacy final; a rank's band a ``FinalRows`` as its final); float64
+    values make x, every sum and y float64."""
 
     def __init__(self, packed: GStreamMatrix, device,
                  value_dtype: Optional[torch.dtype] = None, *,

@@ -17,6 +17,9 @@ HBM_GBPS = (
     ("H100 80GB HBM3", 3350.0),
     ("H200", 4800.0),
 )
+# NVLink rate of the H100 SXM in one direction, GB/s (NVIDIA's data sheet:
+# 900 GB/s of NVLink a card, both directions together).
+NVLINK_GBPS = 450.0
 
 
 def require_device(device) -> torch.device:
