@@ -192,6 +192,24 @@ and the distributed SpMV (``sparsetpu_torch/dist/``), in ranks started by
                    32^3; ``python -m sparsetpu_torch.bench.scaling --json``
                    in a subprocess, every row at 0 verify errors.
 
+and the checkpoints (``pack/serialize.py``), after the f64 paths, and the
+SuiteSparse suite (``bench/suite.py``), after the dist phase:
+
+  checkpoints      the devices of five main paths (the headline's fused
+                   device, f32 and f64; the roadNet-CA stand-in's classic
+                   device with its multi final, its GL = 2 pack on the
+                   segment-sum route, and its classic f64 device), each
+                   saved by ``save_device`` where its phase built it, then
+                   loaded by ``load_device`` and driven once as a main
+                   path: y beside the saved device's (bit for bit, or
+                   within the gold tolerance) and the gold, each kernel
+                   beside its plain version; the archive's bytes and the
+                   save and load seconds beside the pack-and-upload
+                   seconds the load replaces;
+  suite            ``run_suite(allow_synthetic=True)``: its 13 rows (the
+                   10 stand-ins and 3 structured generators) must PASS;
+                   beside each row cuSPARSE on the same matrix and x.
+
 Each main path is driven once through the entry points a user calls, with
 every kernel's launch count set to 0 just before and read just after; a
 kernel of that path that did not launch fails the run.  Then
@@ -550,6 +568,9 @@ class Smoke:
         self.hbm = hbm
         self.records = {}                 # name -> the JSON entry
         self.calls = {}                   # tag -> whole_call_multi's ms
+        self.pack_s = {}                  # main path -> pack + upload s
+        self.ckpts = []                   # checkpoint_save's records
+        self.ckpt_dir = None              # their temporary directory
         self.whole = {}                   # tag -> whole_call's ms
         self.launches = {k: 0 for k in KERNELS}
 
@@ -2996,6 +3017,155 @@ def dist_main(s, paths, small, t0):
     print(f"phase dist: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
+def _layout(s, d):
+    """What a device's launches depend on: its class, its pack's layout
+    and its finish (F levels, final kind, spills, the map's entries); a
+    loaded device must match the device saved."""
+    if isinstance(d, s.fused.FusedDevice):
+        p = d.meta
+        return (type(d).__name__, p.Q, p.T, p.GLW, p.GX, p.n_steps,
+                p.n_slabs, p.SGRP, p.fin_direct, int(p.spill_row.size))
+    p, fin = d.meta, d.plan.final
+    return (type(d).__name__, p.G, p.Q, p.GL, p.tiles_per_step, p.n_steps,
+            len(d.flevels), type(fin).__name__,
+            getattr(fin, "n_spills", None),
+            d.final.rows.n_entries if d.final is not None else None)
+
+
+def checkpoint_save(s, tag, dev, m, x):
+    """Save a main path's device (``pack/serialize.py:save_device``) to the
+    run's checkpoint directory, timed (host clock), beside its y for ``x``:
+    ``checkpoint_main`` loads it and compares."""
+    from sparsetpu_torch.pack.serialize import save_device
+    xt = s.torch.as_tensor(x, dtype=s.torch.float64 if dev.dtype ==
+                           s.torch.float64 else s.torch.float32,
+                           device=s.dev)
+    y = dev.spmv(xt).cpu().numpy()
+    if s.ckpt_dir is None:
+        s.ckpt_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
+    path = os.path.join(s.ckpt_dir.name, f"{len(s.ckpts)}.npz")
+    s.sync()
+    t0 = time.perf_counter()
+    save_device(path, dev)
+    save_s = time.perf_counter() - t0
+    s.ckpts.append(dict(tag=tag, path=path, m=m, x=x, y=y,
+                        layout=_layout(s, dev), save_s=save_s,
+                        pack_s=s.pack_s[tag],
+                        nbytes=os.path.getsize(path)))
+    print(f"checkpoint [{tag}]: saved {os.path.getsize(path)} B in "
+          f"{save_s:.2f} s", flush=True)
+
+
+def checkpoint_main(s, t0):
+    """Each saved device loaded on the card (``load_device``: the uploads,
+    the launch plan, ``FinalRows`` and ``LiveSlots`` built again, no pack
+    or finish build) and driven once as a main path: y beside the saved
+    device's (bit for bit, or within the gold tolerance where a kernel adds
+    with atomics), against the gold, each kernel against its plain
+    version; the archive's size, the save and load seconds beside the
+    pack-and-upload seconds the load replaces.  The files are deleted."""
+    from sparsetpu_torch.pack.serialize import load_device
+    torch, h = s.torch, s.h
+    load_total = 0.0
+    for c in s.ckpts:
+        tag = f"checkpoint [{c['tag']}]"
+        m, x, y0 = c["m"], c["x"], c["y"]
+        s.sync()
+        t1 = time.perf_counter()
+        d = load_device(c["path"], device=s.dev)
+        s.sync()
+        load_s = time.perf_counter() - t1
+        load_total += load_s
+        os.remove(c["path"])
+        if _layout(s, d) != c["layout"]:
+            raise RuntimeError(f"{tag}: loaded {_layout(s, d)}, saved "
+                               f"{c['layout']}")
+        dt = np.float64 if y0.dtype == np.float64 else np.float32
+        xt = torch.as_tensor(x, dtype=getattr(torch, np.dtype(dt).name),
+                             device=s.dev)
+        y = s.drive(tag, lambda: d.spmv(xt), s.kernels_of(d)).cpu().numpy()
+        same = y.tobytes() == y0.tobytes()
+        diff = float(np.abs(y - y0).max()) if y.size else 0.0
+        atol, rtol = h.default_tolerance(dt, m.nr_nzeros / max(m.nr_rows, 1))
+        if h.verification(y0, y, diff_thres=atol, rel_thres=rtol) or (
+                dt == np.float64 and diff > F64_GOLD_REL * max(
+                    1.0, float(np.abs(y0).max()))):
+            raise RuntimeError(f"{tag}: y off the saved device's by {diff}")
+        _gold_errors(h, m, x, y, dt)
+        if isinstance(d, s.fused.FusedDevice):
+            x2 = d.prepare_x(xt)
+            yk = d.blocks(x2)
+            yr = d.blocks(x2, kernel=s.fused.fused_spmv_reference)
+            s.sync()
+            agree = (f"the free wrapper vs plain max abs {_agree(yk, yr):.3e}"
+                     f", the device's one launch vs its plain version "
+                     f"{_device_call_agrees(s, d, x):.3e}")
+            del yk, yr
+        else:
+            s.gstream(d, xt, c["tag"], measure=False)
+            agree = "each kernel agrees with its plain version"
+        print(f"{tag}: {c['layout'][0]}, archive {c['nbytes']} B, saved in "
+              f"{c['save_s']:.2f} s, loaded in {load_s:.2f} s (pack + "
+              f"upload {c['pack_s']:.2f} s) | y "
+              + ("bit-identical to the saved device's" if same else
+                 f"max abs {diff:.3e} off the saved device's (within the "
+                 f"gold tolerance)")
+              + f", 0 errors vs spmv_gold | {agree}", flush=True)
+        del d
+    if s.ckpt_dir is not None:
+        s.ckpt_dir.cleanup()
+    save_total = sum(c["save_s"] for c in s.ckpts)
+    s.ckpts.clear()
+    print(f"phase checkpoints: {time.perf_counter() - t0 + save_total:.1f} s"
+          f" (saves {save_total:.1f} s in their phases, loads "
+          f"{load_total:.1f} s)", flush=True)
+
+
+SUITE_ROWS = 13                   # CLASSIC_SUITE's 10 and 3 structured
+
+
+def suite_main(s, small, t0):
+    """``bench.suite.run_suite(allow_synthetic=True)`` on the card: every
+    row must PASS.  Beside each row, cuSPARSE (``torch.sparse_csr @ x``) on
+    the same matrix and x, a call timed as ``bench_spmv`` times the port's
+    (CUDA events, median of 20 warm calls), measured here and not part of
+    the suite's rows.  A CPU rehearsal (``small``) runs the netlist row
+    alone."""
+    from sparsetpu_torch.bench import harness, suite
+    torch = s.torch
+    bench, lib = harness.bench_spmv, {}
+
+    def bench_beside_cusparse(matrix, name, **kw):
+        r = bench(matrix, name=name, **kw)
+        if s.dev.type == "cuda":
+            # bench_spmv's x
+            x = np.random.default_rng(0).uniform(0.0, 1.0, matrix.nr_cols)
+            xt = torch.as_tensor(x, dtype=torch.float32, device=s.dev)
+            a = s.csr(matrix)
+            lib[name] = (s.call_ms(lambda: a @ xt, repeats=20), r.total_ms)
+            del a
+        return r
+
+    harness.bench_spmv = bench_beside_cusparse
+    try:
+        rows = suite.run_suite(["netlist"] if small else None,
+                               allow_synthetic=True, device=s.dev)
+    finally:
+        harness.bench_spmv = bench
+    for row in rows:
+        print(f"  suite row: {json.dumps(row)}", flush=True)
+        if row["matrix"] in lib:
+            ms, port_ms = lib[row["matrix"]]
+            print(f"    cuSPARSE (torch.sparse_csr @ x): {ms:.4f} ms a call "
+                  f"({row['nnz'] / ms / 1e6:.3f} Gnnz/s) | the port "
+                  f"{port_ms:.4f} ms ({row['gnnz_s']:.3f} Gnnz/s)",
+                  flush=True)
+    bad = [r["matrix"] for r in rows if r.get("verify") != "PASS"]
+    if bad or len(rows) != (1 if small else SUITE_ROWS):
+        raise RuntimeError(f"suite: {len(rows)} rows, not PASS: {bad}")
+    print(f"phase suite: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def bench_entry(s, t0):
     """``python -m sparsetpu_torch.bench`` in a subprocess (``--device cpu
     --small`` on a CPU rehearsal): its last line parses, value > 0, the
@@ -3042,6 +3212,7 @@ def main_path(s, tag, make, run_devices, t0):
     t1 = time.perf_counter()
     sm, devices = run_devices(m)
     t_pack = time.perf_counter() - t1
+    s.pack_s[tag] = t_pack
     expected = set().union(*(s.kernels_of(d) for d in devices))
     y = s.drive(tag, lambda: sm.spmv(xt), expected)
     if tuple(y.shape) != (m.nr_rows,) or not bool(y.isfinite().all()):
@@ -3108,6 +3279,7 @@ def run(device, hbm: float, small: bool = False):
     s.fused_kernel(sm.fused_device, sm.prepare_x(x), "headline", lib_ms)
     s.profile("headline", lambda: sm @ xt)
     one_launch(s, "headline", lambda: sm @ xt)
+    checkpoint_save(s, "headline", sm.fused_device, m, x)
     print(f"phase headline: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- headline SpMM, k = 8: the fused SpMM kernel
@@ -3205,6 +3377,7 @@ def run(device, hbm: float, small: bool = False):
     s.whole_call_multi(sm, m, Xt, tag)
     s.profile(tag, lambda: sm @ Xt)
     s.gstream_multi(sm.device_module, Xt, tag)
+    checkpoint_save(s, "wide x (roadNet-CA)", sm.device_module, m, x)
     print(f"phase wide x: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- per-tile base: the same matrix with GL pinned
@@ -3214,13 +3387,14 @@ def run(device, hbm: float, small: bool = False):
         d = st.GStreamDevice(h.pack_gstream(mat, G=8, GL=2), s.dev)
         return d, [d]
 
-    _, _, xt2, pin, devs = main_path(s, "per-tile base (roadNet-CA, GL=2)",
-                                     lambda: m, pinned, t0)
+    _, x2, xt2, pin, devs = main_path(s, "per-tile base (roadNet-CA, GL=2)",
+                                      lambda: m, pinned, t0)
     print(f"  per-tile base: GStreamDevice.spmv "
           f"{s.call_ms(lambda: pin.spmv(xt2), repeats=20):.4f} ms a call",
           flush=True)
     s.profile("per-tile base (roadNet-CA, GL=2)", lambda: pin.spmv(xt2))
     s.gstream(devs[0], xt2, "per-tile base (roadNet-CA, GL=2)")
+    checkpoint_save(s, "per-tile base (roadNet-CA, GL=2)", pin, m, x2)
     print(f"phase per-tile base: {time.perf_counter() - t0:.1f} s",
           flush=True)
     del pin, devs
@@ -3302,6 +3476,7 @@ def run(device, hbm: float, small: bool = False):
     s.fused_kernel(sm.device_module, sm.prepare_x(x), "headline f64", lib_ms)
     s.profile("headline f64", lambda: sm @ xt)
     one_launch(s, "headline f64", lambda: sm @ xt)
+    checkpoint_save(s, "headline f64", sm.device_module, m, x)
     tag = "headline f64 SpMM k=4"
     Xt = spmm_path(s, tag, m, lambda X: sm @ X, [sm.device_module], 4)
     s.whole_call_multi(sm, m, Xt, tag)
@@ -3330,9 +3505,13 @@ def run(device, hbm: float, small: bool = False):
     s.whole_call_multi(sm, m, Xt, tag)
     s.profile(tag, lambda: sm @ Xt)
     s.gstream_multi(d, Xt, tag)
+    checkpoint_save(s, "wide x f64 (roadNet-CA)", d, m, x)
     print(f"phase wide x f64: {time.perf_counter() - t0:.1f} s", flush=True)
 
     del m, sm, Xt, d
+
+    # ---- checkpoints: the five devices saved above, loaded and driven
+    checkpoint_main(s, time.perf_counter())
 
     # ---- BSR, the solvers and SpGEMM
     t0 = time.perf_counter()
@@ -3354,6 +3533,7 @@ def run(device, hbm: float, small: bool = False):
     select_chains_main(s, table, small, time.perf_counter())
     dist_main(s, paths, small, time.perf_counter())
     keep.cleanup()
+    suite_main(s, small, time.perf_counter())
     bench_entry(s, time.perf_counter())
 
     missing = sorted(set(KERNELS) - set(s.records))

@@ -152,7 +152,11 @@ def bench_spmv(matrix, name: str = "random", config=None, repeats: int = 50,
 
     total_ms = call_ms(lambda: sm.spmv_packed_x(xp), dev, repeats)
     if sm.fused_device is not None:
-        kernel_ms = call_ms(lambda: sm.fused_device.blocks(xp), dev, repeats)
+        # the hybrid keeps x unpacked (its heavy rows' device pads it
+        # another way): the fused kernel of its light rows takes its own
+        xf = xp if sm.heavy_device is None else \
+            sm.fused_device.prepare_x(x)
+        kernel_ms = call_ms(lambda: sm.fused_device.blocks(xf), dev, repeats)
         finish_ms = max(total_ms - kernel_ms, 0.0)
     else:
         kernel_ms, finish_ms = total_ms, 0.0

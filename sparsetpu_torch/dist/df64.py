@@ -23,6 +23,7 @@ from ..formats.csr import CSRMatrix
 from ..kernels.f64emu import DF64GStreamDevice, split_planes
 from ..kernels.final_rows import FinalRows
 from ..pack.balance import balance_rows
+from ..pack.final_levels import FinishPlan
 from ..pack.gather_stream import pack_gstream
 from ..utils.config import SpmvConfig
 from . import comm
@@ -58,6 +59,7 @@ def shard_spmv_df64(matrix: CSRMatrix, group=None,
     pk_lo = pack_gstream(m_lo, config, G=pk_hi.G,
                          tiles_per_step=pk_hi.tiles_per_step, **kw)
     rows = FinalRows.from_chunk_row(pk_hi.chunk_row, pk_hi.nr_rows, dev)
-    band = DF64GStreamDevice.from_packed(pk_hi, pk_lo, dev, final=rows)
+    band = DF64GStreamDevice.from_packed(pk_hi, pk_lo, dev,
+                                         plan=FinishPlan([], rows, None))
     return ShardedSpmvDF64(band, group, part, matrix.nr_cols,
                            matrix.nr_nzeros)

@@ -39,7 +39,6 @@ import torch
 
 from .. import _host
 from ..pack.final_levels import FinishPlan, _FinalLevel
-from .final_rows import FinalRows
 from .spmm import spmm_gstream
 from .spmv_fused import DF64FusedDevice
 from .spmv_gstream import GStreamDevice, LiveSlots, live_slot_sums
@@ -104,16 +103,18 @@ class DF64GStreamDevice(GStreamDevice):
 
     @classmethod
     def from_packed(cls, packed_hi, packed_lo, device,
-                    final: Optional[FinalRows] = None) -> "DF64GStreamDevice":
+                    plan: Optional[FinishPlan] = None) -> "DF64GStreamDevice":
         """Upload the (hi, lo) ``GStreamMatrix`` pair (from either
-        package's ``pack_gstream``).  ``final``, a ``FinalRows`` over the
-        pack's positions (a rank's band, ``FinalRows.from_chunk_row``),
-        takes the place of the legacy level and of the segment-sum route."""
+        package's ``pack_gstream``).  ``plan``, a ``FinishPlan`` with no F
+        levels, takes the place of the legacy level built here: its final
+        a ``FinalRows`` over the pack's positions (a rank's band,
+        ``FinalRows.from_chunk_row``), or a checkpoint's legacy level or
+        segment-sum chunk rows (``pack/serialize.py:load_device``)."""
         self = cls.__new__(cls)
-        self._build(packed_hi, packed_lo, device, final)
+        self._build(packed_hi, packed_lo, device, plan)
         return self
 
-    def _build(self, packed_hi, packed_lo, device, final=None) -> None:
+    def _build(self, packed_hi, packed_lo, device, plan=None) -> None:
         if packed_lo.values.shape != packed_hi.values.shape or not all(
                 np.array_equal(getattr(packed_hi, k), getattr(packed_lo, k))
                 for k in ("chunk_row", "cell_idx", "route", "step_window")):
@@ -121,13 +122,13 @@ class DF64GStreamDevice(GStreamDevice):
                              "deterministic)")
         if packed_hi.GL:
             raise ValueError("the f64 device takes GL = 0 packs only")
-        if final is None:
+        if plan is None:
             chunk_row = packed_hi.chunk_row.reshape(-1).astype(np.int64)
             final = _FinalLevel.build(chunk_row, packed_hi.nr_rows)
             plan = FinishPlan([], final, chunk_row.astype(np.int32)
                               if final is None else None)
-        else:
-            plan = FinishPlan([], final, None)
+        elif plan.flevels:
+            raise ValueError("the f64 device takes no F levels")
         GStreamDevice.__init__(
             self, packed_hi, device,
             values=join_f64(packed_hi.values, packed_lo.values), plan=plan)

@@ -309,8 +309,12 @@ def test_device_call_matches_plain_on_card(cuda, case):
 
 
 def _kernels_a_call(fn):
-    """(kernel launches, memsets) on the card in one call of ``fn``, from
-    a profiler trace of that call alone."""
+    """(kernel launches, memsets) in one call of ``fn``, from a profiler
+    trace of that call alone: its record of the runtime API calls on the
+    host (``cudaLaunchKernel``, ``cudaMemsetAsync``).  The card's own
+    record drops events near a trace's start, and a one-call trace can
+    hold none of them; the host's record stays whole (``chip_smoke.py:
+    traced`` counts from it too)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -319,9 +323,9 @@ def _kernels_a_call(fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    memsets = sum("memset" in e.name.lower() for e in events)
-    return len(events) - memsets, memsets
+    api = [e.name for e in prof.events() if e.device_type == DeviceType.CPU]
+    return (sum("LaunchKernel" in a for a in api),
+            sum("Memset" in a for a in api))
 
 
 @pytest.mark.gpu
