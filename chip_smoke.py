@@ -134,10 +134,10 @@ and the measurement path (``bench/micro.py``, ``pack/rates.py``,
                    its chunk incidence; the roadNet-CA stand-in packed with
                    the default chooser and with the card's table, each
                    ``A @ x`` against the gold;
-  autotune         ``autotune_pack`` on the roadNet-CA stand-in cut to 1M
-                   nnz, each candidate's time, the pick's y against the
-                   gold, then ``bench_spmv(..., autotune=True)`` on the same
-                   matrix;
+  autotune         ``autotune_pack`` on the roadNet-CA stand-in cut to a
+                   third of its rows (657,094) and 333,333 nnz, each
+                   candidate's time, the pick's y against the gold, then
+                   ``bench_spmv(..., autotune=True)`` on the same matrix;
   fused stages     ``bench_fused_stages`` (``bench/fused_stages.py``, the
                    kernels of ``csrc/fused_stages.cu``): at the headline the
                    forward alone, the forward with finish stage 1, #1's
@@ -209,6 +209,31 @@ SuiteSparse suite (``bench/suite.py``), after the dist phase:
   suite            ``run_suite(allow_synthetic=True)``: its 13 rows (the
                    10 stand-ins and 3 structured generators) must PASS;
                    beside each row cuSPARSE on the same matrix and x.
+
+and the reference's own programs, through the JAX package's entry points,
+keywords and CLI flags, each where its matrix's phase built it:
+
+  reference        the headline through bench.py's protocol on the
+  programs         headline phase's ``SparseMatrix(m, backend="pallas")``
+                   (``d = sm._device``, ``d.spmv(d.prepare_x(x),
+                   x_is_packed=True)``) and through ``FusedDevice(p)`` on
+                   its pack (#1); the headline in f64 through
+                   ``pack_fused_df64(m).spmv_f64(x)`` (#10); the
+                   roadNet-CA stand-in through ``GStreamDevice(p)`` on the
+                   wide x phase's pack (#3 and the final) and
+                   ``spmm_gstream(dev, x_multi=X)`` at k = 8 (#7 and the
+                   k-plane final), and in f64 through ``spmv_f64`` of a
+                   ``DF64GStreamDevice`` on the phase's (hi, lo) packs
+                   (#11 and the f64 final; ``DF64GStreamDevice(m)``
+                   repacks for 24 s); ``python -m sparsetpu_torch
+                   --backend pallas -v`` and ``--backend xla`` on the
+                   headline's shape in subprocesses.  Each result must be
+                   a tensor on the card, meet the gold with 0 errors and
+                   equal the port's own entry point's (``sm @ x``, ``sm @
+                   X``) within the gold tolerance; its kernels are held to
+                   their plain versions; its ms a call is printed beside
+                   the entry point's, with the card's name and power
+                   limit.
 
 Each main path is driven once through the entry points a user calls, with
 every kernel's launch count set to 0 just before and read just after; a
@@ -534,6 +559,11 @@ def road_net_ca(h, nr=1_971_281, nnz=5_533_214, seed=2, dtype=np.float32):
     return h.CSRMatrix(ptr, cols, vals, nr, nr)
 
 
+# the autotune phase's cut of the roadNet-CA stand-in (the density of a
+# row kept): a third of its rows, 0.06 of its nnz
+AUTOTUNE_ROWS, AUTOTUNE_NNZ = 657_094, 333_333
+
+
 def webbase_1m(h, nr=1_000_005, nnz=3_105_536):
     """The webbase-1M stand-in of the suite: its shape and density, power-law
     rows, the suite's per-name seed (1234 ^ crc32 of the name)."""
@@ -572,6 +602,14 @@ class Smoke:
         self.ckpts = []                   # checkpoint_save's records
         self.ckpt_dir = None              # their temporary directory
         self.whole = {}                   # tag -> whole_call's ms
+        self.refs = {}                    # reference program -> (ms, the
+                                          # port's entry point's ms)
+        self.ref_s = 0.0                  # the reference programs' seconds
+        if self.dev.type == "cuda":
+            from sparsetpu_torch.utils.device import card_line
+            self.card = card_line()
+        else:
+            self.card = "cpu"
         self.launches = {k: 0 for k in KERNELS}
 
     # -- timing -------------------------------------------------------------
@@ -1422,7 +1460,8 @@ def classic_regimes(s):
          lambda d: final_kinds(d) == {"_FinalLevel"} and not len(d.flevels)),
     ]
     for tag, m, kw, vdt, regime in cases:
-        d = sg.GStreamDevice(h.pack_gstream(m, **kw), s.dev, vdt)
+        d = sg.GStreamDevice(h.pack_gstream(m, **kw), value_dtype=vdt,
+                             device=s.dev)
         if not regime(d):
             raise RuntimeError(f"{tag}: the pack does not hit its regime: "
                                f"{s.describe(d)}")
@@ -1470,7 +1509,7 @@ def classic_regimes(s):
     fl._FinalLevel.build = fl._FinalLevelV2.build = classmethod(
         lambda cls, *a, **k: None)
     try:
-        d = sg.GStreamDevice(h.pack_gstream(m), s.dev)
+        d = sg.GStreamDevice(h.pack_gstream(m), device=s.dev)
     finally:
         fl._FinalLevel.build, fl._FinalLevelV2.build = builds
     if d.final is not None:
@@ -1493,7 +1532,7 @@ def f64_fused_regimes(s):
     f64 = np.float64
     cases = _fused_cases(s, f64)
     for tag, m, kw, regime in cases:
-        packs = fused.pack_fused_df64(m, **kw)
+        packs = fused._fused_df64_packs(m, **kw)
         if packs is None or not regime(packs[0]):
             raise RuntimeError(f"f64 {tag}: the pack does not hit its regime")
         dev = fused.DF64FusedDevice.from_packed(*packs, s.dev)
@@ -1712,7 +1751,7 @@ def bsr_regimes(s):
             # no final builds, as a pathological placement makes it
             fl._FinalLevel.build = classmethod(lambda cls, *a, **k: None)
         try:
-            d = s.bsr.BSRDevice(b, s.dev)
+            d = s.bsr.BSRDevice(b, device=s.dev)
         finally:
             fl._FinalLevel.build = build
         if (d.final is None) != seg:
@@ -1795,7 +1834,7 @@ def bsr_main(s, small, t0):
     m = h.fem_poisson_3d(n, np.float32)
     b = h.csr_to_bsr(m)
     t1 = time.perf_counter()
-    d = st.BSRDevice(b, s.dev)
+    d = st.BSRDevice(b, device=s.dev)
     s.sync()
     tag = f"bsr FEM-3D Poisson {n}^3"
     print(f"{tag}: {m.nr_rows}x{m.nr_cols} nnz={m.nr_nzeros}, "
@@ -1987,7 +2026,7 @@ def ladder_main(s, small, t0):
     n, T = (256 if small else micro.LADDER_TILES), 16
     tag = f"micro ladder ({n} tiles, {T} a block)"
     res = s.drive(tag, lambda: micro.bench_ladder(
-        n, LADDER_GS, device=s.dev, tiles_per_step=T),
+        n, T, LADDER_GS, device=s.dev),
         {f"ladder_{k}" for k in LADDER_STAGES})
     inp = micro.ladder_inputs(n, LADDER_GS, T, s.dev)
     val, idx, xw, base = inp["val"], inp["idx"], inp["xw"], inp["base"]
@@ -2068,7 +2107,7 @@ def rates_main(s, m, default_dev, small, t0):
         os.environ["SPARSETPU_TORCH_CACHE"] = d
         try:
             table = s.drive(tag, lambda: rates.refresh_rates(
-                s.dev, n_tiles=n, timer=_cpu_timer(s), verbose=True),
+                True, n_tiles=n, device=s.dev, timer=_cpu_timer(s)),
                 {"rates_forward"},
                 rename={"gstream_spmv_window": "rates_forward"})
             cached = rates.load_rates(kind)
@@ -2111,7 +2150,7 @@ def rates_main(s, m, default_dev, small, t0):
     xt = torch.as_tensor(x, dtype=torch.float32, device=s.dev)
     t1 = time.perf_counter()
     card = s.st.GStreamDevice(h.pack_gstream(
-        m, h.SpmvConfig(dtype=np.float32), rates=table), s.dev)
+        m, h.SpmvConfig(dtype=np.float32), rates=table), device=s.dev)
     s.sync()
     print(f"  {tag}: roadNet-CA packed with the card's table and uploaded "
           f"in {time.perf_counter() - t1:.1f} s", flush=True)
@@ -3121,6 +3160,213 @@ def checkpoint_main(s, t0):
           f"{load_total:.1f} s)", flush=True)
 
 
+def reference_program(s, tag, call, expected, m, x, existing, plain):
+    """One program written for the reference (``sparsetpu``'s entry points
+    and keywords), driven once on the card as a main path, its launches
+    read around it, then checked four ways: its result is a tensor on the
+    card; it meets the gold (``spmv_gold``, or ``spmm_gold`` column by
+    column for an X of k columns) with 0 errors; it equals the result of
+    ``existing`` = (label, call), the port's own entry point on the same
+    matrix, within the gold tolerance (bit for bit reported); and
+    ``plain()`` holds the kernels it launched to their plain versions (it
+    raises, or returns what it printed).  Its ms a call beside the entry
+    point's, with the card's name and power limit."""
+    torch, h = s.torch, s.h
+    t0 = time.perf_counter()
+    dt = np.float64 if m.values.dtype == np.float64 else np.float32
+    y = s.drive(f"reference program [{tag}]", call, expected)
+    if not (isinstance(y, torch.Tensor) and y.device.type == s.dev.type):
+        raise RuntimeError(f"{tag}: the result is a {type(y).__name__} on "
+                           f"{getattr(y, 'device', 'the host')}, not a "
+                           f"tensor on {s.dev}")
+    label, entry = existing
+    y0 = entry()
+    s.sync()
+    if x.ndim == 2:
+        _gold_errors_multi(s, m, x, y, dt)
+    else:
+        _gold_errors(h, m, x, y.cpu().numpy(), dt)
+    yn, y0 = y.cpu().numpy(), y0.cpu().numpy()
+    same = yn.shape == y0.shape and yn.tobytes() == y0.tobytes()
+    diff = float(np.abs(yn - y0).max(initial=0.0))
+    atol, rtol = h.default_tolerance(dt, m.nr_nzeros / max(m.nr_rows, 1))
+    cols = [(yn, y0)] if yn.ndim == 1 else [
+        (yn[:, j], y0[:, j]) for j in range(yn.shape[1])]
+    if yn.shape != y0.shape or any(
+            h.verification(b, a, diff_thres=atol, rel_thres=rtol)
+            for a, b in cols) or (dt == np.float64 and diff > F64_GOLD_REL
+                                  * max(1.0, float(np.abs(y0).max()))):
+        raise RuntimeError(f"{tag}: {diff} off {label}'s result")
+    agree = plain()
+    ms = s.call_ms(call, repeats=20)
+    ms0 = s.call_ms(entry, repeats=20)
+    s.refs[tag] = (ms, ms0)
+    print(f"reference program [{tag}]: {ms:.4f} ms a call | {label} "
+          f"{ms0:.4f} ms | {tuple(y.shape)} {_real(y)} tensor on {y.device}"
+          f", 0 errors vs the gold, "
+          + ("bit-identical to" if same else f"max abs {diff:.3e} off")
+          + f" {label}'s | {agree} | [{s.card}]", flush=True)
+    s.ref_s += time.perf_counter() - t0
+
+
+def _fused_call_agrees(s, dev, x2):
+    """A fused device's one launch on a prepared x against its plain
+    version; what it printed."""
+    yk = dev.spmv_blocks(x2, x_is_packed=True)
+    s.sync()
+    return (f"the device's one launch vs its plain version max abs "
+            f"{_agree(yk, dev.spmv_blocks_reference(x2)):.3e}")
+
+
+def reference_programs_headline(s, m, x, xt, sm):
+    """bench.py's protocol (``bench.py:84-92``: ``d = sm._device``,
+    ``d.spmv(d.prepare_x(x), x_is_packed=True)``) on the headline phase's
+    ``SparseMatrix(m, backend="pallas")``, and ``FusedDevice(p)`` on its
+    pack ``p``; each beside ``sm @ x``."""
+    fused = s.fused
+    kw = {} if s.dev.type == "cuda" else {"device": s.dev}
+    d = sm._device
+    if sm.backend != "auto" or not isinstance(d, fused.FusedDevice):
+        raise RuntimeError("SparseMatrix(backend='pallas'): expected the "
+                           "fused device")
+    x2 = d.prepare_x(x)
+    existing = ("SparseMatrix(m) @ x", lambda: sm @ xt)
+    reference_program(
+        s, "headline: bench.py's protocol on SparseMatrix(m, "
+        "backend='pallas')", lambda: d.spmv(x2, x_is_packed=True),
+        {"fused_spmv"}, m, x, existing, lambda: _fused_call_agrees(s, d, x2))
+    del d, x2
+    t0 = time.perf_counter()
+    fd = fused.FusedDevice(sm.packed, **kw)
+    s.ref_s += time.perf_counter() - t0
+    reference_program(
+        s, "headline: FusedDevice(pack_fused(m)), the phase's pack",
+        lambda: fd.spmv(xt), {"fused_spmv"}, m, x, existing,
+        lambda: _fused_call_agrees(s, fd, fd.prepare_x(xt)))
+
+
+def reference_programs_headline_f64(s, m, x, xt, sm):
+    """``pack_fused_df64(m).spmv_f64(x)`` (the program packs the two f32
+    planes), beside ``sm @ x`` on the phase's fused f64 device."""
+    kw = {} if s.dev.type == "cuda" else {"device": s.dev}
+    t0 = time.perf_counter()
+    dev = s.fused.pack_fused_df64(m, **kw)
+    s.sync()
+    if not isinstance(dev, s.fused.DF64FusedDevice):
+        raise RuntimeError(f"pack_fused_df64: got {type(dev).__name__}")
+    print(f"reference programs [headline f64]: pack_fused_df64(m) packed "
+          f"and uploaded in {time.perf_counter() - t0:.1f} s: "
+          f"{s.describe(dev)}", flush=True)
+    s.ref_s += time.perf_counter() - t0
+    reference_program(
+        s, "headline f64: pack_fused_df64(m).spmv_f64(x)",
+        lambda: dev.spmv_f64(xt), {"fused_spmv_f64"}, m, x,
+        ("SparseMatrix(m) @ x", lambda: sm @ xt),
+        lambda: _fused_call_agrees(s, dev, dev.prepare_x(xt)))
+
+
+def reference_programs_road(s, m, x, xt, sm):
+    """``GStreamDevice(p)`` on the wide x phase's pack (the device builds
+    its finish plan, as the JAX one does), its ``spmv`` and
+    ``spmm_gstream(dev, x_multi=X)`` at k = 8, beside ``sm @ x`` and ``sm
+    @ X``."""
+    kw = {} if s.dev.type == "cuda" else {"device": s.dev}
+    t0 = time.perf_counter()
+    d = s.st.GStreamDevice(sm.device_module.meta, **kw)
+    s.sync()
+    print(f"reference programs [roadNet-CA]: GStreamDevice(p) on the phase's"
+          f" pack, uploaded with its finish in {time.perf_counter() - t0:.1f}"
+          f" s: {s.describe(d)}", flush=True)
+    s.ref_s += time.perf_counter() - t0
+
+    def kernels_agree():
+        s.gstream(d, xt, "reference program, roadNet-CA", measure=False)
+        return "each kernel agrees with its plain version"
+    reference_program(
+        s, "roadNet-CA: GStreamDevice(p).spmv(x)", lambda: d.spmv(xt),
+        s.kernels_of(d), m, x, ("SparseMatrix(m) @ x", lambda: sm @ xt),
+        kernels_agree)
+    X = _X(m.nr_cols, 8, seed=8)
+    Xt = s.torch.as_tensor(X, dtype=s.torch.float32, device=s.dev)
+
+    def multi_agree():
+        s.gstream_multi(d, Xt, "reference program, roadNet-CA k=8",
+                        measure=False)
+        return "each k-plane kernel agrees with its plain version"
+    reference_program(
+        s, "roadNet-CA: spmm_gstream(dev, x_multi=X), k=8",
+        lambda: s.sp.spmm_gstream(d, x_multi=Xt), s.spmm_kernels_of(d), m,
+        X, ("SparseMatrix(m) @ X", lambda: sm @ Xt), multi_agree)
+
+
+def reference_programs_road_f64(s, m, x, xt, sm):
+    """``DF64GStreamDevice(...).spmv_f64(x)`` beside ``sm @ x``.  The device
+    packs the (hi, lo) planes and builds its final inside
+    ``DF64GStreamDevice(m)``, as the JAX one does: 23.7 s at this matrix
+    (NVIDIA H100 80GB HBM3, 700 W), so the program takes the phase's packs
+    and finish plan through the class's buffer path, ``from_packed`` (the
+    lo plane is the card's float64 plane minus hi, exact)."""
+    import dataclasses
+    from sparsetpu_torch.pack.serialize import _lo_plane
+    d0 = sm.device_module
+    t0 = time.perf_counter()
+    lo = dataclasses.replace(d0.meta, values=_lo_plane(d0.stream.values,
+                                                       d0.meta.values))
+    d = s.f64.DF64GStreamDevice.from_packed(d0.meta, lo, s.dev, plan=d0.plan)
+    s.sync()
+    print(f"reference programs [roadNet-CA f64]: "
+          f"DF64GStreamDevice.from_packed(the phase's hi and lo packs, its "
+          f"finish plan) in place of DF64GStreamDevice(m), uploaded in "
+          f"{time.perf_counter() - t0:.1f} s: {s.describe(d)}", flush=True)
+    s.ref_s += time.perf_counter() - t0
+
+    def kernels_agree():
+        s.gstream(d, xt, "reference program, roadNet-CA f64",
+                  measure=False)
+        return "each kernel agrees with its plain version"
+    reference_program(
+        s, "roadNet-CA f64: DF64GStreamDevice.from_packed(hi, lo, "
+        "plan).spmv_f64(x)",
+        lambda: d.spmv_f64(xt), s.kernels_of(d), m, x,
+        ("SparseMatrix(m) @ x", lambda: sm @ xt), kernels_agree)
+
+
+def reference_cli(s, small):
+    """``python -m sparsetpu_torch --backend pallas -v --random ...`` and
+    ``--backend xla`` (the JAX CLI's flags) in subprocesses: each must
+    exit 0 with 0 verify errors; its median SpMV ms a call printed."""
+    import subprocess
+    t0 = time.perf_counter()
+    spec = f"{20_000 if small else 200_000}x100000x0.0005"
+    for backend in ("pallas", "xla"):
+        argv = [sys.executable, "-m", "sparsetpu_torch", "--backend",
+                backend, "-v", "--random", spec]
+        if s.dev.type != "cuda":
+            argv += ["--device", "cpu", "--repeats", "3"]
+        t1 = time.perf_counter()
+        out = subprocess.run(
+            argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=600)
+        lines = out.stdout.strip().splitlines()
+        total = [ln for ln in lines if ln.startswith("Total SpMV time")]
+        if out.returncode != 0 or not total or \
+                "Verification: PASS (0 errors)" not in lines:
+            raise RuntimeError(f"reference CLI {backend}: rc "
+                               f"{out.returncode}, stdout "
+                               f"{out.stdout[-2000:]!r}, stderr "
+                               f"{out.stderr[-2000:]!r}")
+        ms = float(total[0].split()[3])
+        s.refs[f"cli {backend}"] = (ms, None)
+        print(f"reference program [python -m sparsetpu_torch "
+              f"{' '.join(argv[3:])}]: rc 0 in "
+              f"{time.perf_counter() - t1:.1f} s, {ms:.4f} ms a call "
+              f"(Total SpMV time), Verification: PASS (0 errors) | "
+              f"[{s.card}]", flush=True)
+    s.ref_s += time.perf_counter() - t0
+    print(f"phase reference programs: {s.ref_s:.1f} s (in the headline, "
+          f"wide x and f64 phases and here)", flush=True)
+
+
 SUITE_ROWS = 13                   # CLASSIC_SUITE's 10 and 3 structured
 
 
@@ -3249,6 +3495,10 @@ def run(device, hbm: float, small: bool = False):
     rehearsal of the control flow, not a measurement)."""
     s = Smoke(device, hbm)
     st, h, fused, sg = s.st, s.h, s.fused, s.sg
+    # the run opens no connection: a SuiteSparse matrix missing from the
+    # cache is its synthetic stand-in, with no mirror tried
+    from sparsetpu_torch.formats import suitesparse
+    suitesparse.MIRRORS = ()
     # the main paths' matrices, kept for the dist phase's ranks
     keep = tempfile.TemporaryDirectory(prefix="chip_smoke_")
     paths = {name: os.path.join(keep.name, f"{i}.npz") for i, name in
@@ -3263,7 +3513,8 @@ def run(device, hbm: float, small: bool = False):
     t0 = time.perf_counter()
 
     def fused_only(m):
-        sm = st.SparseMatrix(m, device=s.dev)
+        # bench.py's call (``bench.py:85``): "pallas" is the port's "auto"
+        sm = st.SparseMatrix(m, backend="pallas", device=s.dev)
         if sm.fused_device is None or sm.heavy_device is not None:
             raise RuntimeError("headline: expected the fused device")
         return sm, [sm.fused_device]
@@ -3280,6 +3531,7 @@ def run(device, hbm: float, small: bool = False):
     s.profile("headline", lambda: sm @ xt)
     one_launch(s, "headline", lambda: sm @ xt)
     checkpoint_save(s, "headline", sm.fused_device, m, x)
+    reference_programs_headline(s, m, x, xt, sm)
     print(f"phase headline: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- headline SpMM, k = 8: the fused SpMM kernel
@@ -3335,7 +3587,8 @@ def run(device, hbm: float, small: bool = False):
 
     # ---- the headline's shuffled pack: the k-plane legacy final
     t0 = time.perf_counter()
-    shuf = st.GStreamDevice(h.pack_gstream(m, shuffle_lanes=True), s.dev)
+    shuf = st.GStreamDevice(h.pack_gstream(m, shuffle_lanes=True),
+                            device=s.dev)
     print(f"headline shuffled: {s.describe(shuf)}", flush=True)
     if not (isinstance(shuf.final, sg.FinalDevice) and not shuf.final.v2
             and not len(shuf.flevels)):
@@ -3378,13 +3631,14 @@ def run(device, hbm: float, small: bool = False):
     s.profile(tag, lambda: sm @ Xt)
     s.gstream_multi(sm.device_module, Xt, tag)
     checkpoint_save(s, "wide x (roadNet-CA)", sm.device_module, m, x)
+    reference_programs_road(s, m, x, xt, sm)
     print(f"phase wide x: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # ---- per-tile base: the same matrix with GL pinned
     t0 = time.perf_counter()
 
     def pinned(mat):
-        d = st.GStreamDevice(h.pack_gstream(mat, G=8, GL=2), s.dev)
+        d = st.GStreamDevice(h.pack_gstream(mat, G=8, GL=2), device=s.dev)
         return d, [d]
 
     _, x2, xt2, pin, devs = main_path(s, "per-tile base (roadNet-CA, GL=2)",
@@ -3400,13 +3654,14 @@ def run(device, hbm: float, small: bool = False):
     del pin, devs
 
     # ---- the rate sweep (#16) and the chooser with its table, on the same
-    # matrix; autotune on a cut of it: at full size its five candidates'
-    # host packing took 155.7 s on the H100 machine (the 8 flat finals'
-    # build, over every row)
+    # matrix; autotune on a cut of it: its five candidates' host packing
+    # took 155.7 s on the H100 machine at full size and 83 s at 1M nnz (the
+    # finals' build, over every row), and the phase runs it twice
     table = rates_main(s, m, sm.device_module, small, time.perf_counter())
     del m, sm
     t0 = time.perf_counter()
-    autotune_main(s, road_net_ca(h, nnz=20_000 if small else 1_000_000),
+    autotune_main(s, road_net_ca(h, nr=AUTOTUNE_ROWS,
+                                 nnz=20_000 if small else AUTOTUNE_NNZ),
                   table, small, t0)
 
     # ---- web graph: the heavy-row hybrid
@@ -3477,6 +3732,7 @@ def run(device, hbm: float, small: bool = False):
     s.profile("headline f64", lambda: sm @ xt)
     one_launch(s, "headline f64", lambda: sm @ xt)
     checkpoint_save(s, "headline f64", sm.device_module, m, x)
+    reference_programs_headline_f64(s, m, x, xt, sm)
     tag = "headline f64 SpMM k=4"
     Xt = spmm_path(s, tag, m, lambda X: sm @ X, [sm.device_module], 4)
     s.whole_call_multi(sm, m, Xt, tag)
@@ -3506,9 +3762,11 @@ def run(device, hbm: float, small: bool = False):
     s.profile(tag, lambda: sm @ Xt)
     s.gstream_multi(d, Xt, tag)
     checkpoint_save(s, "wide x f64 (roadNet-CA)", d, m, x)
+    reference_programs_road_f64(s, m, x, xt, sm)
     print(f"phase wide x f64: {time.perf_counter() - t0:.1f} s", flush=True)
 
     del m, sm, Xt, d
+    reference_cli(s, small)
 
     # ---- checkpoints: the five devices saved above, loaded and driven
     checkpoint_main(s, time.perf_counter())

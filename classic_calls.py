@@ -129,7 +129,7 @@ def run(device: str, small: bool) -> dict:
             b2b["headline_k8_loop"] = stream_ms(
                 lambda: [sm @ c for c in cols], dev)
     del sm, Xt, cols
-    shuf = st.GStreamDevice(h.pack_gstream(m, shuffle_lanes=True), dev)
+    shuf = st.GStreamDevice(h.pack_gstream(m, shuffle_lanes=True), device=dev)
     spmm("shuffled_k8", None, m, 8, fn=lambda X: st.spmm_gstream(shuf, X))
     del shuf, m
 
@@ -150,7 +150,7 @@ def run(device: str, small: bool) -> dict:
 
     n = 16 if small else 72
     m = h.fem_poisson_3d(n, np.float32)
-    d = st.BSRDevice(h.csr_to_bsr(m), dev)
+    d = st.BSRDevice(h.csr_to_bsr(m), device=dev)
     xt = torch.as_tensor(np.random.default_rng(0).standard_normal(
         m.nr_cols), dtype=torch.float32, device=dev)
     cs._gold_errors(h, m, xt.cpu().numpy().astype(np.float64),

@@ -40,12 +40,16 @@ from ..kernels.f64emu import DF64GStreamDevice, spmm_df64
 from ..kernels.spgemm import spgemm
 from ..kernels.spmm import spmm_gstream
 from ..kernels.spmv_coo import spmm_coo, spmv_coo
-from ..kernels.spmv_fused import (DF64FusedDevice, FusedDevice,
-                                  pack_fused_df64)
+from ..kernels.spmv_fused import FusedDevice, pack_fused_df64
 from ..kernels.spmv_gstream import GStreamDevice
 from ..pack.balance import balance_rows
 from ..pack.gather_stream import GStreamMatrix, unpack_gstream
-from ..utils.device import require_device
+from ..utils.device import CUDA, pick_device, require_device
+
+# the JAX package's backend names and the port's: "pallas" is "auto" (the
+# Pallas kernels, routed), "xla" is "coo" (gather + segment sum)
+BACKENDS = {"auto": "auto", "pallas": "auto", "fused": "fused",
+            "coo": "coo", "xla": "coo"}
 
 
 def _pack_fused(matrix, config):
@@ -64,18 +68,21 @@ def _pack_classic(matrix, config):
 class SparseMatrix:
     """A packed sparse matrix on one device, with an ``@`` operator.
 
-    ``backend``: ``"auto"`` routes as the JAX package does; ``"fused"`` is
-    the same but raises ``ValueError`` where the fused layout does not
-    apply; ``"coo"`` is the gather + ``index_add_`` path, the counterpart
-    of the JAX package's ``"xla"``."""
+    ``backend``: ``"auto"`` (or the JAX package's ``"pallas"``) routes as
+    the JAX package does; ``"fused"`` is the same but raises
+    ``ValueError`` where the fused layout does not apply; ``"coo"`` (or
+    the JAX package's ``"xla"``) is the gather + ``index_add_`` path.
+    ``backend`` holds the port's name.  ``interpret=True`` runs the plain
+    PyTorch versions on the CPU (``utils/device.py:pick_device``)."""
 
-    def __init__(self, matrix, config=None, backend: str = "auto", *,
-                 device="cuda"):
-        if backend not in ("auto", "fused", "coo"):
-            raise ValueError(f"backend must be auto, fused or coo "
+    def __init__(self, matrix, config=None, backend: str = "auto",
+                 interpret=None, *, device=CUDA):
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {sorted(BACKENDS)} "
                              f"(got {backend!r})")
+        backend = BACKENDS[backend]
         self._init_state(matrix, config or _host.SpmvConfig(
-            dtype=matrix.dtype), backend, device)
+            dtype=matrix.dtype), backend, pick_device(device, interpret))
         if backend == "coo":
             coo = matrix.to_coo()
 
@@ -99,13 +106,14 @@ class SparseMatrix:
             fp = self._route_fused(matrix)
         if fp is not None:
             self._packed = fp
-            self._device = FusedDevice.from_packed(fp, self.device)
+            self._device = FusedDevice(fp, device=self.device)
         elif backend == "fused":
             raise ValueError("fused layout not applicable to this matrix "
                              "(nr_cols too large or pathological structure)")
         else:
             self._packed = _pack_classic(matrix, self.config)
-            self._device = GStreamDevice(self._packed, self.device, vdt)
+            self._device = GStreamDevice(self._packed, value_dtype=vdt,
+                                         device=self.device)
 
     def _init_state(self, matrix, config, backend: str, device) -> None:
         self.device = require_device(device)
@@ -151,13 +159,12 @@ class SparseMatrix:
             raise ValueError(
                 "num_partitions > 1 with dtype=float64 is not supported on "
                 "one chip; shard over a mesh with sparsetpu.dist instead")
-        packs = None
+        dev = None
         if cfg.block_cols >= 16 * 1024:
-            packs = pack_fused_df64(matrix, Q=cfg.vf or None)
-        if packs is not None:
-            self._device = DF64FusedDevice.from_packed(*packs, self.device)
-        else:
-            self._device = DF64GStreamDevice(matrix, self.device)
+            dev = pack_fused_df64(matrix, Q=cfg.vf or None,
+                                  device=self.device)
+        self._device = (dev if dev is not None else
+                        DF64GStreamDevice(matrix, device=self.device))
         self._packed = self._device.meta
 
     def _route_fused(self, matrix):
@@ -184,7 +191,8 @@ class SparseMatrix:
             if fp is not None:
                 if heavy is not None:
                     self._heavy_dev = GStreamDevice(
-                        _pack_classic(heavy, self.config), self.device)
+                        _pack_classic(heavy, self.config),
+                        device=self.device)
                     self._heavy_rows = torch.as_tensor(
                         heavy_rows, dtype=torch.int64, device=self.device)
                 return fp
@@ -199,10 +207,11 @@ class SparseMatrix:
             sub = matrix.row_slice(int(s), int(e))
             fp = _pack_fused(sub, self.config) if vdt is None else None
             if fp is not None:
-                self._parts.append(FusedDevice.from_packed(fp, self.device))
+                self._parts.append(FusedDevice(fp, device=self.device))
             else:
                 self._parts.append(GStreamDevice(
-                    _pack_classic(sub, self.config), self.device, vdt))
+                    _pack_classic(sub, self.config), value_dtype=vdt,
+                    device=self.device))
         self._packed = self._parts[0].meta
 
     @property
@@ -307,7 +316,8 @@ class SparseMatrix:
             return self._device
         if self._classic is None:
             self._classic = GStreamDevice(
-                _pack_classic(self._source, self.config), self.device)
+                _pack_classic(self._source, self.config),
+                device=self.device)
         return self._classic
 
     def __matmul__(self, x):
@@ -408,13 +418,13 @@ def _split_rows(matrix, heavy_rows: np.ndarray):
     return light, heavy
 
 
-def pack(matrix, config=None, backend: str = "auto", *,
-         device="cuda") -> SparseMatrix:
+def pack(matrix, config=None, backend: str = "auto", interpret=None, *,
+         device=CUDA) -> SparseMatrix:
     """Pack ``matrix`` onto ``device`` (create_csr_hw_matrix analogue)."""
-    return SparseMatrix(matrix, config, backend=backend, device=device)
+    return SparseMatrix(matrix, config, backend, interpret, device=device)
 
 
-def spmv(matrix, x, config=None, *, device="cuda") -> torch.Tensor:
+def spmv(matrix, x, config=None, *, device=CUDA) -> torch.Tensor:
     """y = A @ x for a CSR matrix (packed here) or a ``SparseMatrix``."""
     if not isinstance(matrix, SparseMatrix):
         matrix = pack(matrix, config, device=device)
@@ -430,7 +440,7 @@ def unpack(matrix: SparseMatrix):
 # --- reference-named aliases (the reference's README.md:34-46) -------------
 
 def create_csr_hw_matrix(matrix, config=None, *,
-                         device="cuda") -> SparseMatrix:
+                         device=CUDA) -> SparseMatrix:
     return pack(matrix, config, device=device)
 
 

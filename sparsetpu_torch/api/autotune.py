@@ -17,7 +17,7 @@ import numpy as np
 
 from ..kernels.spmv_gstream import GStreamDevice
 from ..pack.gather_stream import MAX_G, VALID_Q, _choose_layout, pack_gstream
-from ..utils.device import require_device
+from ..utils.device import CUDA, pick_device
 from .api import SparseMatrix
 
 
@@ -35,9 +35,9 @@ def autotune_candidates(matrix, rates=None):
     return cands, (g0, q0)
 
 
-def autotune_pack(matrix, candidates: Optional[Sequence] = None, *,
-                  device="cuda", rates=None, timer=None,
-                  verbose: bool = False) -> SparseMatrix:
+def autotune_pack(matrix, candidates: Optional[Sequence] = None,
+                  interpret=None, verbose: bool = False, *, device=CUDA,
+                  rates=None, timer=None) -> SparseMatrix:
     """Pack ``matrix`` at several (G, Q) layouts, time each one's
     ``GStreamDevice.spmv`` on ``device`` and return the fastest as a
     classic-device ``SparseMatrix`` (also where the default route would be
@@ -48,10 +48,11 @@ def autotune_pack(matrix, candidates: Optional[Sequence] = None, *,
     timed back to back (``bench.harness.stream_ms``); ``timer(fn, device)
     -> ms a call`` replaces that clock.  On the CPU, without a timer, only
     a single candidate is taken (there is nothing to choose): CPU times of
-    the plain versions say nothing of the card."""
+    the plain versions say nothing of the card.  ``interpret=True`` is the
+    CPU (``utils/device.py:pick_device``)."""
     from ..bench.harness import stream_ms     # the harness imports api
 
-    dev = require_device(device)
+    dev = pick_device(device, interpret)
     default, (g0, q0) = autotune_candidates(matrix, rates)
     if candidates is None:
         candidates = default
@@ -70,7 +71,7 @@ def autotune_pack(matrix, candidates: Optional[Sequence] = None, *,
     best = None
     for g, q in candidates:
         packed = pack_gstream(matrix, G=int(g), Q=int(q))
-        d = GStreamDevice(packed, dev)
+        d = GStreamDevice(packed, device=dev)
         x2 = d.prepare_x(x)
         ms = (timer(lambda: d.spmv(x2, x_is_packed=True), dev)
               if timer is not None else math.nan)

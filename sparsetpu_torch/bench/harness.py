@@ -15,8 +15,17 @@ import numpy as np
 import torch
 
 from .. import _host
-from ..api.api import SparseMatrix
-from ..utils.device import hbm_gbps, require_device
+from ..api.api import BACKENDS, SparseMatrix
+from ..utils.device import (CUDA, HBM_GBPS,  # noqa: F401
+                            hbm_gbps, require_device)
+
+
+def detect_hbm_gbps(device=CUDA) -> float:
+    """The data-sheet device-memory GB/s of the card behind ``device``
+    (``utils/device.py:hbm_gbps``, the table ``HBM_GBPS``).  The JAX
+    function falls back to 819 (a TPU v5e) for a kind it does not know;
+    this one raises rather than guess."""
+    return hbm_gbps(device)
 
 
 @dataclasses.dataclass
@@ -112,16 +121,18 @@ def stream_ms(fn, device, calls: int = 100) -> float:
 
 
 def bench_spmv(matrix, name: str = "random", config=None, repeats: int = 50,
-               backend: str = "auto", autotune: bool = False, *, device,
-               timer=None) -> BenchResult:
+               backend: str = "auto", autotune: bool = False, *,
+               device=CUDA, timer=None) -> BenchResult:
     """Pack ``matrix`` on ``device``, multiply a random x, verify against
     the CPU gold and time the SpMV and its kernel.
 
     ``autotune=True`` times candidate (G, Q) layouts on the device and
     benchmarks the fastest (``api.autotune.autotune_pack``, its candidate
     clock ``timer``), for the auto and fused backends in f32, as
-    ``sparsetpu/bench/harness.py:118-120``."""
+    ``sparsetpu/bench/harness.py:118-120``.  ``backend`` takes the JAX
+    package's names too (``pallas``, ``xla``)."""
     dev = require_device(device)
+    backend = BACKENDS.get(backend, backend)
     ms = {}
 
     def phase(key, fn):

@@ -21,6 +21,7 @@ launches ``csrc/micro_ladder.cu`` for CUDA tensors (or raises) and runs
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import time
 
@@ -29,7 +30,7 @@ import torch
 
 from ..kernels._build import check, library
 from ..utils.config import LANES, SUBLANES as CHUNK
-from ..utils.device import require_device
+from ..utils.device import CUDA, require_device
 
 STAGES = {"stream": 0, "lane": 1, "dual": 2, "tilebase": 3, "window": 4,
           "window-smem": 5}
@@ -147,14 +148,14 @@ def ladder_stage(stage, val, idx, cell, xw, base=None, *, G: int = 1,
 ladder_stage.launches = collections.Counter()
 
 
-def timeit(fn, device, n: int = 20, warmup: int = 3) -> float:
-    """Minimum time of one call of ``fn`` in ms over ``n`` calls, after
-    ``warmup`` (counterpart of ``sparsetpu/bench/micro.py:26-34``): CUDA
-    events around each call, the calls queued back to back, on a CUDA
-    device; ``time.perf_counter`` on the CPU."""
+def timeit(f, n: int = 20, warmup: int = 3, *, device=CUDA) -> float:
+    """Minimum time of one call of ``f`` in ms over ``n`` calls, after
+    ``warmup`` (counterpart of ``sparsetpu/bench/micro.py:26-34``, which
+    gives seconds): CUDA events around each call, the calls queued back to
+    back, on a CUDA device; ``time.perf_counter`` on the CPU."""
     dev = require_device(device)
     for _ in range(warmup):
-        fn()
+        f()
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
         events = []
@@ -162,7 +163,7 @@ def timeit(fn, device, n: int = 20, warmup: int = 3) -> float:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            fn()
+            f()
             end.record()
             events.append((start, end))
         torch.cuda.synchronize(dev)
@@ -170,9 +171,47 @@ def timeit(fn, device, n: int = 20, warmup: int = 3) -> float:
     times = []
     for _ in range(n):
         t0 = time.perf_counter()
-        fn()
+        f()
         times.append((time.perf_counter() - t0) * 1e3)
     return min(times)
+
+
+def timeit_chained(make_call, xw, n: int = 1024, n_base: int = 16,
+                   reps: int = 5) -> float:
+    """Time of one call of ``make_call(xw)`` in ms by the chained
+    differential loop (counterpart of ``sparsetpu/bench/micro.py:37-78``,
+    which gives seconds): ``n`` and ``n_base`` calls queued back to back,
+    each loop timed whole, and the median over ``reps`` of (t_n -
+    t_n_base) / (n - n_base).  The difference takes out the loop's fixed
+    cost.  On the card the loops are timed with CUDA events on the current
+    stream; on the CPU with ``time.perf_counter``.  The JAX loop carries
+    each call's output into the next call's input so that no dispatch is
+    served from a cache; a CUDA launch always runs, so the calls here are
+    independent and nothing but ``make_call`` is timed."""
+    if n <= n_base:
+        raise ValueError(f"n={n} must exceed n_base={n_base}")
+    cuda = isinstance(xw, torch.Tensor) and xw.device.type == "cuda"
+
+    def loop(k):
+        if not cuda:
+            t0 = time.perf_counter()
+            for _ in range(k):
+                make_call(xw)
+            return (time.perf_counter() - t0) * 1e3
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(k):
+            make_call(xw)
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    with torch.cuda.device(xw.device) if cuda else contextlib.nullcontext():
+        loop(n_base)                              # warm
+        diffs = sorted((loop(n) - loop(n_base)) / (n - n_base)
+                       for _ in range(reps))
+    return max(diffs[len(diffs) // 2], 1e-9)
 
 
 def ladder_inputs(n_tiles: int, G_list=(1, 2, 4, 8, 16, 32),
@@ -223,13 +262,15 @@ def ladder_runs(inp, G_list=(1, 2, 4, 8, 16, 32)):
     return runs
 
 
-def bench_ladder(n_tiles=None, G_list=(1, 2, 4, 8, 16, 32), *,
-                 device="cuda", verbose: bool = True,
-                 tiles_per_step: int = 16):
+def bench_ladder(n_tiles=None, tiles_per_step: int = 16,
+                 G_list=(1, 2, 4, 8, 16, 32), verbose: bool = True,
+                 chain_n=None, *, device=CUDA):
     """Returns {stage: (ms, effective GB/s, Gslot/s)} for n_tiles (8, 128)
     f32 tiles (default ``LADDER_TILES`` on the card, 64 on the CPU, where
     the times are those of the plain versions and mean nothing).  Times
-    are ``timeit``'s: the minimum of 20 calls."""
+    are ``timeit``'s, the minimum of 20 calls; with ``chain_n`` they are
+    ``timeit_chained``'s over ``chain_n`` calls, as the JAX ladder times
+    each stage (its default 1024)."""
     dev = require_device(device)
     if n_tiles is None:
         n_tiles = LADDER_TILES if dev.type == "cuda" else 64
@@ -243,10 +284,12 @@ def bench_ladder(n_tiles=None, G_list=(1, 2, 4, 8, 16, 32), *,
                                     T=T)
     # warm the card first, so that the first stage is not timed at idle
     # clocks (timed cold, stream read slower than lane, which streams more)
-    timeit(call(*runs[0][1:4]), dev, n=1, warmup=200)
+    timeit(call(*runs[0][1:4]), n=1, warmup=200, device=dev)
     results = {}
     for name, stage, cell, G, extra in runs:
-        ms = timeit(call(stage, cell, G), dev)
+        fn = call(stage, cell, G)
+        ms = (timeit(fn, device=dev) if chain_n is None else
+              timeit_chained(lambda _: fn(), xw, chain_n))
         t = ms * 1e-3
         gbs = (val.nbytes + extra) / t / 1e9
         gslot = n_tiles * 1024 / t / 1e9

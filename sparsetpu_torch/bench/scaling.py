@@ -153,7 +153,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if args.multihost and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         from ..dist.multihost import init_multihost
-        init_multihost(None if args.device == "cuda" else "gloo")
+        init_multihost(backend=None if args.device == "cuda" else "gloo")
     rep = scaling_report(args.rows_per_dev, args.nnz_per_row, args.devices,
                          verbose=not args.json, multihost=args.multihost,
                          device=args.device)

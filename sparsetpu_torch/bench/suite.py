@@ -10,9 +10,10 @@ the HBM roofline, fill factor and pack time.
     python -m sparsetpu_torch.bench.suite --json          # machine-readable
     python -m sparsetpu_torch.bench.suite --synthetic --device cpu
 
-Real matrices are read from the local cache only (formats/suitesparse.py:
-pre-place the .mtx files in its cache dir); pass --synthetic to run the
-protocol on published-statistics stand-ins where a file is missing (rows
+Real matrices are read from the cache (formats/suitesparse.py), downloaded
+there first where they are missing; on a machine without a network,
+pre-place the .mtx files in its cache dir.  Pass --synthetic to run the
+protocol on published-statistics stand-ins where a file cannot be had (rows
 marked ``synthetic`` in the table — they measure the engine, not the
 original operator).  ``compile_ms`` is the first call's time: the kernels'
 library built or loaded, and x uploaded.
@@ -55,7 +56,7 @@ def run_suite(names: Optional[List[str]] = None,
         else:
             try:
                 m, is_real = fetch(name, allow_synthetic=allow_synthetic)
-            except (FileNotFoundError, KeyError) as e:
+            except (ConnectionError, FileNotFoundError, KeyError) as e:
                 if verbose:
                     print(f"{name:18s} SKIP ({e})", flush=True)
                 rows.append({"matrix": name, "status": "skip",

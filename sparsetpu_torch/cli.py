@@ -4,7 +4,10 @@ The reference executable's run protocol, as ``python -m sparsetpu`` runs it
 (banner -> read matrix -> random x -> timed CPU gold -> timed repack ->
 device SpMV -> verification PASS/FAIL -> storage report), on the port: the
 device is chosen with ``--device`` (default ``cuda``; nothing falls back to
-the CPU).
+the CPU).  It takes the JAX CLI's flags: ``--backend pallas|fused|xla``
+(``pallas`` the default, as there; the port's own names ``auto`` and
+``coo`` too) and ``-v/--verbose``, counted and, as in the JAX CLI, read
+nowhere.
 """
 
 from __future__ import annotations
@@ -32,15 +35,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "by the layout model")
     p.add_argument("--partitions", type=int, default=1,
                    help="row partitions (CU), nnz-balanced")
-    p.add_argument("--backend", default="auto",
-                   choices=("auto", "fused", "coo"),
-                   help="auto routes as the JAX package (fused, hybrid "
-                        "or classic GStream kernels); fused errors when the "
-                        "fused layout does not apply; coo is gather + "
-                        "index_add_")
+    p.add_argument("--backend", default="pallas",
+                   choices=("pallas", "fused", "xla", "auto", "coo"),
+                   help="pallas (or auto) routes as the JAX package "
+                        "(fused, hybrid or classic GStream kernels); fused "
+                        "errors when the fused layout does not apply; xla "
+                        "(or coo) is gather + index_add_")
     p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     p.add_argument("--repeats", type=int, default=50,
                    help="timed calls (median reported)")
+    p.add_argument("--verbose", "-v", action="count", default=0)
     p.add_argument("--profile", type=str, default=None, metavar="DIR",
                    help="capture a torch.profiler trace of the benchmark "
                         "into DIR (a Chrome trace: chrome://tracing, "

@@ -17,8 +17,6 @@ from __future__ import annotations
 
 from typing import Optional
 
-import torch
-
 from ..formats.csr import CSRMatrix
 from ..kernels.f64emu import DF64GStreamDevice, split_planes
 from ..kernels.final_rows import FinalRows
@@ -28,7 +26,7 @@ from ..pack.gather_stream import pack_gstream
 from ..utils.config import SpmvConfig
 from . import comm
 from .spmv_dist import (ShardedSpmv, _check_member, _slice_rows,
-                        default_device)
+                        band_device)
 
 
 class ShardedSpmvDF64(ShardedSpmv):
@@ -38,13 +36,13 @@ class ShardedSpmvDF64(ShardedSpmv):
 
 def shard_spmv_df64(matrix: CSRMatrix, group=None,
                     config: Optional[SpmvConfig] = None, *,
-                    device=None) -> ShardedSpmvDF64:
+                    interpret=False, device=None) -> ShardedSpmvDF64:
     """Pack this rank's band of a float64 CSR matrix as the (hi, lo) pair
     and upload it (the multi-chip DOUBLE=1 create_csr_hw_matrix).  Group
     rank 0 packs band 0's hi plane and gives every rank its G and
     tiles_per_step."""
     _check_member(group)
-    dev = default_device() if device is None else torch.device(device)
+    dev = band_device(device, interpret)
     n, me = comm.group_size(group), comm.group_rank(group)
     part = balance_rows(matrix, n)
     m_hi, m_lo = split_planes(_slice_rows(matrix, int(part.row_start[me]),

@@ -32,17 +32,29 @@ from ..pack.gather_stream import _choose_layout, pack_gstream
 from ..utils.config import SpmvConfig
 from . import comm
 from .spmv_dist import (ShardedSpmv, _band_device, _check_member,
-                        _slice_rows, default_device)
+                        _slice_rows, band_device)
 
 
-def init_multihost(backend: Optional[str] = None, **kwargs) -> None:
-    """``torch.distributed.init_process_group`` from the environment
-    (``init_method="env://"``, as ``torchrun`` sets it): NCCL when CUDA is
-    present, else gloo; ``backend`` wins.  Once per process, before any
-    collective."""
+def init_multihost(coordinator_address: Optional[str] = None,
+                   num_processes: Optional[int] = None,
+                   process_id: Optional[int] = None, *,
+                   backend: Optional[str] = None, **kwargs) -> None:
+    """``torch.distributed.init_process_group``: NCCL when CUDA is present,
+    else gloo (``backend`` wins).  With no arguments, from the environment
+    (``init_method="env://"``, as ``torchrun`` sets it); the JAX
+    package's arguments (``multihost.py:38-51``) name the rendezvous
+    ``tcp://{coordinator_address}`` ("host:port"), the world size and this
+    process's rank.  ``kwargs`` go to ``init_process_group``.  Once per
+    process, before any collective."""
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
-    dist.init_process_group(backend=backend, init_method="env://", **kwargs)
+    kwargs.setdefault("init_method", "env://" if coordinator_address is None
+                      else f"tcp://{coordinator_address}")
+    if num_processes is not None:
+        kwargs["world_size"] = num_processes
+    if process_id is not None:
+        kwargs["rank"] = process_id
+    dist.init_process_group(backend=backend, **kwargs)
 
 
 def is_multiprocess() -> bool:
@@ -51,14 +63,14 @@ def is_multiprocess() -> bool:
 
 def shard_spmv_multihost(matrix: CSRMatrix, group=None,
                          config: Optional[SpmvConfig] = None, *,
-                         device=None) -> ShardedSpmv:
+                         interpret=False, device=None) -> ShardedSpmv:
     """Pack this rank's band with the global deterministic layout
     (``multihost.py:84-90``: (G, Q) from the whole matrix, ``config.vf``
     overriding Q, tiles_per_step from the per-band nnz) and upload it.
     ``matrix`` is the whole CSR on every rank (every host reads the file;
     each packs 1/P of it).  Returns a ``ShardedSpmv``."""
     _check_member(group)
-    dev = default_device() if device is None else torch.device(device)
+    dev = band_device(device, interpret)
     n, me = comm.group_size(group), comm.group_rank(group)
     part = balance_rows(matrix, n)
     G, Q = _choose_layout(matrix)

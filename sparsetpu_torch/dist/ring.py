@@ -31,7 +31,7 @@ from ..kernels.spmv_gstream import combine_meta, gstream_chunk_sums
 from ..pack.balance import balance_rows
 from ..pack.gather_stream import CHUNK, LANES, STRIPE, pack_gstream
 from . import comm
-from .spmv_dist import RowBands, _check_member, _slice_rows, default_device
+from .spmv_dist import RowBands, _check_member, _slice_rows, band_device
 
 
 def _balance_contiguous(weights: np.ndarray, k: int) -> np.ndarray:
@@ -152,7 +152,7 @@ class RingShardedSpmv(RowBands):
         return final_rows(ws.view(-1), self.rows)
 
 
-def ring_shard_spmv(matrix: CSRMatrix, group=None, *,
+def ring_shard_spmv(matrix: CSRMatrix, group=None, *, interpret=False,
                     tiles_per_step: int = 32,
                     device=None) -> RingShardedSpmv:
     """Pack this rank's band for the ring schedule (``ring.py:235``):
@@ -162,7 +162,7 @@ def ring_shard_spmv(matrix: CSRMatrix, group=None, *,
     is regrouped by segment in this rank's processing order."""
     from ..pack.gather_stream import _choose_layout
     _check_member(group)
-    dev = default_device() if device is None else torch.device(device)
+    dev = band_device(device, interpret)
     n, me = comm.group_size(group), comm.group_rank(group)
     part = balance_rows(matrix, n)
     G, Q = _choose_layout(matrix)

@@ -35,7 +35,7 @@ from ..pack.balance import balance_rows
 from ..pack.final_levels import FinishPlan
 from ..pack.gather_stream import CHUNK, STRIPE, pack_gstream
 from ..utils.config import SpmvConfig
-from ..utils.device import HBM_GBPS, NVLINK_GBPS
+from ..utils.device import CUDA, HBM_GBPS, NVLINK_GBPS, pick_device
 from . import comm
 from .launch import rank_device
 
@@ -57,6 +57,14 @@ def default_device() -> torch.device:
     rank from ``LOCAL_RANK`` (torchrun) or the global rank."""
     local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
     return rank_device(local, "cuda")
+
+
+def band_device(device=None, interpret: bool = False) -> torch.device:
+    """A rank's device: ``device``, or this rank's card when None;
+    ``interpret=True`` is the CPU (``utils/device.py:pick_device``)."""
+    dev = pick_device(CUDA if device is None else device, interpret)
+    return default_device() if device is None and dev.type == "cuda" \
+        else dev
 
 
 def _slice_rows(matrix: CSRMatrix, r0: int, r1: int) -> CSRMatrix:
@@ -82,13 +90,18 @@ class RowBands(nn.Module):
         super().__init__()
         _check_member(group)
         self.group = group
-        self.num_partitions = comm.group_size(group)
         self.rank = comm.group_rank(group)
         self.row_starts = np.asarray(part.row_start, np.int64)
         self.row_ends = np.asarray(part.row_end, np.int64)
         self.nr_rows = int(self.row_ends[-1])
         self.nr_cols, self.nr_nzeros = nr_cols, nr_nzeros
         self.rows_per_part = int(max(self.row_ends - self.row_starts))
+
+    @property
+    def num_partitions(self) -> int:
+        """The number of row bands, one a rank of the group
+        (``spmv_dist.py:82``)."""
+        return len(self.row_starts)
 
     def vector(self, v, n: int) -> torch.Tensor:
         """``v`` as a 1-D tensor of ``n`` values: a tensor must be of the
@@ -169,11 +182,11 @@ def _band_device(pk, device) -> GStreamDevice:
     the final."""
     dev = torch.device(device)
     rows = FinalRows.from_chunk_row(pk.chunk_row, pk.nr_rows, dev)
-    return GStreamDevice(pk, dev, plan=FinishPlan([], rows, None))
+    return GStreamDevice(pk, device=dev, plan=FinishPlan([], rows, None))
 
 
 def shard_spmv(matrix: CSRMatrix, group=None,
-               config: Optional[SpmvConfig] = None, *,
+               config: Optional[SpmvConfig] = None, *, interpret=False,
                device=None) -> ShardedSpmv:
     """Pack this rank's row band and upload it (the multi-chip
     create_csr_hw_matrix, ``spmv_dist.py:244``).  Every rank of ``group``
@@ -181,9 +194,10 @@ def shard_spmv(matrix: CSRMatrix, group=None,
     band is packed with ``shuffle_lanes=True``; group rank 0 packs band 0
     and gives every rank its (G, Q, tiles_per_step), which pin the other
     bands' packs, as in the JAX package, so each band's stream equals the
-    JAX shard's.  ``device``: the rank's card by default."""
+    JAX shard's.  ``device``: the rank's card by default
+    (``band_device``)."""
     _check_member(group)
-    dev = default_device() if device is None else torch.device(device)
+    dev = band_device(device, interpret)
     n, me = comm.group_size(group), comm.group_rank(group)
     part = balance_rows(matrix, n)
 
@@ -218,7 +232,7 @@ def choose_schedule(matrix: CSRMatrix, n_dev: int,
     from ..pack.gather_stream import _choose_layout
     from .ring import _balance_contiguous
 
-    hbm = dict(HBM_GBPS)["H100 SXM"] if hbm_gbps is None else hbm_gbps
+    hbm = HBM_GBPS["H100 SXM"] if hbm_gbps is None else hbm_gbps
     link = NVLINK_GBPS if link_gbps is None else link_gbps
     G, _ = _choose_layout(matrix)
     W = G * CHUNK * STRIPE
@@ -254,10 +268,12 @@ def choose_schedule(matrix: CSRMatrix, n_dev: int,
     return "ring" if ring_time < 0.95 * ag_time else "allgather"
 
 
-def shard_spmv_auto(matrix: CSRMatrix, group=None, *, device=None):
+def shard_spmv_auto(matrix: CSRMatrix, group=None, *, interpret=False,
+                    device=None):
     """Pack and shard with the modelled schedule (``spmv_dist.py:370``):
     the ring where hiding the x exchange pays, the all-gather otherwise."""
     if choose_schedule(matrix, comm.group_size(group)) == "ring":
         from .ring import ring_shard_spmv
-        return ring_shard_spmv(matrix, group, device=device)
-    return shard_spmv(matrix, group, device=device)
+        return ring_shard_spmv(matrix, group, interpret=interpret,
+                               device=device)
+    return shard_spmv(matrix, group, interpret=interpret, device=device)

@@ -1,18 +1,22 @@
-"""SuiteSparse Matrix Collection matrices (counterpart of
-``sparsetpu/formats/suitesparse.py``), read from a local cache only.
+"""SuiteSparse Matrix Collection ingestion (counterpart of
+``sparsetpu/formats/suitesparse.py``, the same host code).
 
 The reference benchmarks on externally supplied matrix files, in practice
-SuiteSparse exports.  The port never opens a network connection:
+SuiteSparse exports:
 
-  * ``fetch(name)`` reads ``<name>.mtx`` (or ``<name>/<name>.mtx``) that is
-    already in ``cache_dir()`` (``$SPARSETPU_TORCH_SS_DIR``, default
+  * ``fetch(name)`` reads ``<name>.mtx`` (or ``<name>/<name>.mtx``) from
+    ``cache_dir()`` (``$SPARSETPU_TORCH_SS_DIR``, default
     ``$SPARSETPU_TORCH_CACHE/suitesparse``, that default
     ``~/.cache/sparsetpu_torch``) through the standard reader
-    (``formats/io.py``).  Place the file there by hand.
+    (``formats/io.py``).  A matrix not there is downloaded first
+    (``download``): the MatrixMarket tarball from the first of ``MIRRORS``
+    that answers, kept in the cache and its ``.mtx`` extracted.  On a
+    machine without a network, place the file (or the tarball) there by
+    hand, or set ``MIRRORS`` to ``()`` so that nothing is tried.
   * ``synthetic_stand_in(name)`` builds a random matrix with the registered
     matrix's published shape and nnz count, byte-identical to the JAX
     package's stand-in; ``fetch(..., allow_synthetic=True)`` returns it,
-    labelled, when the file is missing.
+    labelled, when the download fails.
 
 The classic SpMV benchmark set (Williams et al., "Optimization of sparse
 matrix-vector multiplication on emerging multicore platforms", SC'07) is
@@ -23,6 +27,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import tarfile
 import zlib
 from typing import Dict, Optional, Tuple
 
@@ -31,6 +36,11 @@ import numpy as np
 from .csr import CSRMatrix
 from .io import read_matrix
 from .random import random_csr
+
+MIRRORS = (
+    "https://suitesparse-collection-website.herokuapp.com/MM/{group}/{name}.tar.gz",
+    "https://sparse.tamu.edu/MM/{group}/{name}.tar.gz",
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,26 +95,75 @@ def _find_cached_mtx(name: str) -> Optional[str]:
     return None
 
 
+def _extract(tar_path: str, name: str) -> str:
+    base = cache_dir()
+    with tarfile.open(tar_path) as tf:
+        for member in tf.getmembers():
+            if member.name.endswith(f"{name}.mtx"):
+                member.name = os.path.join(name, f"{name}.mtx")
+                tf.extract(member, base)
+                return os.path.join(base, name, f"{name}.mtx")
+    raise FileNotFoundError(f"{name}.mtx not found inside {tar_path}")
+
+
+def download(group: str, name: str, timeout: float = 120.0) -> str:
+    """Fetch the MatrixMarket tarball into the cache; returns the .mtx
+    path.  A cached ``.mtx`` or tarball is used as it is.  Raises
+    ConnectionError (with each mirror's reason) when no mirror answers,
+    at once where ``MIRRORS`` is empty; callers can fall back to
+    ``synthetic_stand_in``."""
+    mtx = _find_cached_mtx(name)
+    if mtx:
+        return mtx
+    base = cache_dir()
+    os.makedirs(base, exist_ok=True)
+    tar_path = os.path.join(base, f"{name}.tar.gz")
+    if not os.path.exists(tar_path):
+        import urllib.request
+        errs = []
+        for url_t in MIRRORS:
+            url = url_t.format(group=group, name=name)
+            try:
+                with urllib.request.urlopen(url, timeout=timeout) as r, \
+                        open(tar_path + ".part", "wb") as f:
+                    while True:
+                        chunk = r.read(1 << 20)
+                        if not chunk:
+                            break
+                        f.write(chunk)
+                os.replace(tar_path + ".part", tar_path)
+                break
+            except Exception as e:
+                errs.append(f"{url}: {type(e).__name__}: {e}")
+        else:
+            raise ConnectionError(
+                "SuiteSparse download failed on every mirror (offline "
+                f"environment? pre-place {name}.mtx in "
+                f"{base!r} instead):\n  " + "\n  ".join(errs))
+    return _extract(tar_path, name)
+
+
 def fetch(name: str, group: Optional[str] = None,
           allow_synthetic: bool = False) -> Tuple[CSRMatrix, bool]:
-    """Load a SuiteSparse matrix as CSR from the cache directory.  Returns
-    (matrix, is_real); ``is_real`` is False when the file is missing and
-    the synthetic stand-in (same shape and nnz) was substituted, which only
-    ``allow_synthetic=True`` permits.  Raises FileNotFoundError otherwise;
+    """Load a SuiteSparse matrix as CSR, downloading it into the cache when
+    it is not there (``download``).  Returns (matrix, is_real);
+    ``is_real`` is False when the download failed and the synthetic
+    stand-in (same shape and nnz) was substituted, which only
+    ``allow_synthetic=True`` permits; ConnectionError otherwise.
     ``group`` is the collection group, needed for a name outside
     ``CLASSIC_SUITE``."""
     info = CLASSIC_SUITE.get(name)
-    if group is None and info is None:
-        raise KeyError(f"{name!r} is not in CLASSIC_SUITE; pass group=")
-    path = _find_cached_mtx(name)
-    if path is not None:
-        return read_matrix(path), True
-    if not allow_synthetic or info is None:
-        raise FileNotFoundError(
-            f"{name}.mtx is not in {cache_dir()!r} (the port reads only "
-            f"pre-placed files; SuiteSparse group "
-            f"{group or info.group!r})")
-    return synthetic_stand_in(name), False
+    if group is None:
+        if info is None:
+            raise KeyError(
+                f"{name!r} is not in CLASSIC_SUITE; pass group=")
+        group = info.group
+    try:
+        return read_matrix(download(group, name)), True
+    except ConnectionError:
+        if not allow_synthetic or info is None:
+            raise
+        return synthetic_stand_in(name), False
 
 
 def synthetic_stand_in(name: str, seed: int = 1234) -> CSRMatrix:

@@ -31,11 +31,14 @@ import torch
 from torch import nn
 
 from ..pack.final_levels import _FinalLevel
-from ..utils.device import require_device
+from ..utils.device import CUDA, pick_device
 from ._build import check, library
 from .spmv_gstream import _require, final_device
 
 BH, BW = 8, 128              # the block shape the device takes
+# block row sums the TPU kernel packs into one (8, 128) output tile
+# (``bsr.py:27``); the card's kernel writes the (n_blocks, 8) sums directly
+GROUP = 16
 
 
 def _check_partials(blocks, bcol, x2) -> int:
@@ -103,12 +106,12 @@ class BSRDevice(nn.Module):
 
     BLOCKS_PER_STEP = 64
 
-    def __init__(self, m, device="cuda"):
+    def __init__(self, m, interpret=False, *, device=CUDA):
         super().__init__()
         vals = np.asarray(m.values)
         if vals.ndim != 3 or vals.shape[1:] != (BH, BW):
             raise ValueError(f"device BSR requires {(BH, BW)} blocks")
-        dev = require_device(device)
+        dev = pick_device(device, interpret)
         self.nr_rows, self.nr_cols = m.shape
         self.nr_block_rows = int(m.row_ptr.shape[0]) - 1
         nb = vals.shape[0]
@@ -177,6 +180,6 @@ class BSRDevice(nn.Module):
         return ysum[:self.nr_block_rows].reshape(-1)[:self.nr_rows]
 
 
-def bsr_spmv(m, x, *, device="cuda") -> torch.Tensor:
+def bsr_spmv(m, x, interpret=False, *, device=CUDA) -> torch.Tensor:
     """y = A @ x for a ``BSRMatrix`` with (8, 128) blocks."""
-    return BSRDevice(m, device).spmv(x)
+    return BSRDevice(m, interpret, device=device).spmv(x)

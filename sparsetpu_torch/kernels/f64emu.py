@@ -21,7 +21,9 @@ place of ``DF64``.
                          the finish reads (``LiveSlots``);
   ``spmm_df64``          Y = A @ X on either f64 device: one fused f64 SpMV
                          a column on ``DF64FusedDevice``, the k-plane f64
-                         forward once then the k-plane f64 final here.
+                         forward once then the k-plane f64 final here;
+  ``spmv_f64_emulated``  the JAX package's user-level f64 SpMV of a CSR
+                         matrix, here in native FP64 over the COO path.
 
 The kernels are the f64 forms of ``csrc/fused_spmv.cu``,
 ``final_rows.cu`` and ``gstream_spmm.cu`` and the live-slot kernel of
@@ -39,7 +41,9 @@ import torch
 
 from .. import _host
 from ..pack.final_levels import FinishPlan, _FinalLevel
+from ..utils.device import CUDA, pick_device, require_device
 from .spmm import spmm_gstream
+from .spmv_coo import spmv_coo
 from .spmv_fused import DF64FusedDevice
 from .spmv_gstream import GStreamDevice, LiveSlots, live_slot_sums
 
@@ -95,11 +99,14 @@ class DF64GStreamDevice(GStreamDevice):
     segment-sum.  The pack stays on the device for ``A @ X`` (the k-plane
     forward reads it whole) and as the plain yardstick
     (``stream(x2, gstream_chunk_sums_reference)``).
-    ``DF64GStreamDevice(matrix, device)`` packs an f64 CSR matrix;
+    ``DF64GStreamDevice(matrix)`` packs an f64 CSR matrix inside the
+    constructor, as the JAX one does (``f64emu.py:445``; ``interpret=True``
+    keeps it on the CPU, ``utils/device.py:pick_device``);
     ``from_packed`` uploads a (hi, lo) pack pair."""
 
-    def __init__(self, matrix, device):
-        self._build(*pack_gstream_df64(matrix), device)
+    def __init__(self, matrix, interpret=False, *, device=CUDA):
+        dev = pick_device(device, interpret)
+        self._build(*pack_gstream_df64(matrix), dev)
 
     @classmethod
     def from_packed(cls, packed_hi, packed_lo, device,
@@ -130,7 +137,7 @@ class DF64GStreamDevice(GStreamDevice):
         elif plan.flevels:
             raise ValueError("the f64 device takes no F levels")
         GStreamDevice.__init__(
-            self, packed_hi, device,
+            self, packed_hi, device=require_device(device),
             values=join_f64(packed_hi.values, packed_lo.values), plan=plan)
         read = (torch.unique(self.final.rows.idx) if self.final is not None
                 else self.chunk_pos)
@@ -160,16 +167,39 @@ class DF64GStreamDevice(GStreamDevice):
                              f"{want}")
         return self.finish_vec(self.forward_live(x.contiguous().view(-1)))
 
+    def spmv_f64(self, x) -> torch.Tensor:
+        """y = A @ x, float64, on this device: ``spmv`` of x as float64
+        (the JAX device's ``spmv_f64``, ``f64emu.py:583``, joins its (hi,
+        lo) y; here y is float64 already)."""
+        return self.spmv(torch.as_tensor(x, dtype=torch.float64,
+                                         device=self.device))
 
-def spmm_df64(device, X) -> torch.Tensor:
-    """Y = A @ X (nr_rows, k) float64 on an f64 device, routed as the JAX
-    package's ``spmm_df64`` (``f64emu.py:389-436``): one fused f64 SpMV a
-    column on ``DF64FusedDevice``; on ``DF64GStreamDevice`` the k-plane f64
-    forward once for all k, then the k-plane f64 final (the JAX package
-    finishes a plane at a time)."""
+
+def spmm_df64(device, x_multi) -> torch.Tensor:
+    """Y = A @ X (nr_rows, k) float64 for X = ``x_multi`` (nr_cols, k) on
+    an f64 device, routed as the JAX package's ``spmm_df64``
+    (``f64emu.py:389-436``): one fused f64 SpMV a column on
+    ``DF64FusedDevice``; on ``DF64GStreamDevice`` the k-plane f64 forward
+    once for all k, then the k-plane f64 final (the JAX package finishes a
+    plane at a time)."""
     if isinstance(device, DF64FusedDevice):
-        return device.spmm(X)
+        return device.spmm(x_multi)
     if isinstance(device, DF64GStreamDevice):
-        return spmm_gstream(device, X)
+        return spmm_gstream(device, x_multi)
     raise TypeError(f"spmm_df64 needs an f64 device, got "
                     f"{type(device).__name__}")
+
+
+def spmv_f64_emulated(matrix, x, *, device=CUDA) -> torch.Tensor:
+    """y = A @ x in float64 for an f64 CSR matrix, on ``device`` (the JAX
+    package's user-level f64 SpMV, ``f64emu.py:135``, a df64 COO product
+    with a compensated segmented scan): native FP64 over the COO path
+    (``spmv_coo``), no pack."""
+    dev = require_device(device)
+    coo = matrix.to_coo()
+
+    def up(a, dtype):
+        return torch.as_tensor(np.asarray(a), dtype=dtype, device=dev)
+    return spmv_coo(up(coo.row_ind, torch.int64), up(coo.col_ind, torch.int64),
+                    up(coo.values, torch.float64), up(x, torch.float64),
+                    matrix.nr_rows)

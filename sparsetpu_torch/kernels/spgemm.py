@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from .. import _host
-from ..utils.device import require_device
+from ..utils.device import CUDA, pick_device
 
 
 def _expand_events(a, b):
@@ -69,10 +69,10 @@ class SpGEMMPlan:
     for any B with the same sparsity structure (A's values are baked in:
     they are the event matrix's entries)."""
 
-    def __init__(self, a, b, device="cuda"):
+    def __init__(self, a, b, interpret=None, *, device=CUDA):
         from ..api.api import SparseMatrix    # the API imports this module
 
-        self.device = require_device(device)
+        self.device = pick_device(device, interpret)
         self.nr_rows, self.nr_cols = a.nr_rows, b.nr_cols
         ea, eb, out_idx, (c_row_ptr, c_cols) = _expand_events(a, b)
         self.c_row_ptr = c_row_ptr
@@ -105,10 +105,10 @@ class SpGEMMPlan:
                                self.nr_rows, self.nr_cols)
 
 
-def spgemm(a, b, *, device="cuda"):
+def spgemm(a, b, interpret=None, *, device=CUDA):
     """C = A @ B with the numeric phase on ``device``; returns a host
     ``CSRMatrix``."""
     if a.nr_cols != b.nr_rows:
         raise ValueError(f"dimension mismatch: {a.shape} @ {b.shape}")
-    plan = SpGEMMPlan(a, b, device=device)
+    plan = SpGEMMPlan(a, b, interpret, device=device)
     return plan.to_csr(plan(b.values))

@@ -188,11 +188,11 @@ def final_gather_multi_reference(step_meta, tile_bases, inst_start, X, cells,
 # the device's SpMM
 # ---------------------------------------------------------------------------
 
-def spmm_gstream(device: GStreamDevice, X) -> torch.Tensor:
-    """Y = A @ X (nr_rows, k) on a classic device: the k-plane forward, each
-    F level's k planes through the same kernel, then the final on all k
-    planes at once (``apply_multi``: one row-sorted gather-sum over every
-    level and spill), or, with no final, one k-plane ``index_add_`` of the
+def spmm_gstream(device: GStreamDevice, x_multi) -> torch.Tensor:
+    """Y = A @ X (nr_rows, k) for X = ``x_multi`` (nr_cols, k) on a classic
+    device: the k-plane forward, each F level's k planes through the same
+    kernel, then the final on all k planes at once (``apply_multi``: one
+    row-sorted gather-sum over every level and spill), or, with no final, one k-plane ``index_add_`` of the
     positions that hold a row.  The JAX package's ``spmm_gstream``
     (``sparsetpu/kernels/spmm.py:107-114``) finishes a plane at a time
     where there are F levels, a multi final or no final; the results
@@ -202,7 +202,7 @@ def spmm_gstream(device: GStreamDevice, X) -> torch.Tensor:
         raise TypeError(f"spmm_gstream needs a GStreamDevice, got "
                         f"{type(device).__name__}")
     vec = device.positions_multi(
-        device.stream.forward_multi(device.prepare_x_multi(X)))
+        device.stream.forward_multi(device.prepare_x_multi(x_multi)))
     if device.final is not None:
         return device.final.apply_multi(vec)
     Y = torch.zeros(device.meta.nr_rows, vec.shape[1], dtype=vec.dtype,

@@ -3,7 +3,9 @@
 
 This is the ``backend="coo"`` path of ``SparseMatrix``, as the XLA path is
 ``backend="xla"`` in the JAX package; it is not a port of a Pallas kernel.
-Semantics contract: ``spmv_gold``.  Indices must be in bounds.
+Semantics contract: ``spmv_gold``.  Indices must be in bounds.  The JAX
+names (``spmv_coo_xla``, ``spmm_coo_xla``, ``spmv_chunked_xla``) are the
+same functions.
 """
 
 from __future__ import annotations
@@ -35,3 +37,7 @@ def spmv_chunked(chunk_sums: torch.Tensor, chunk_rows: torch.Tensor,
     y = torch.zeros(nr_rows + 1, dtype=chunk_sums.dtype,
                     device=chunk_sums.device)
     return y.index_add_(0, chunk_rows, chunk_sums)[:nr_rows]
+
+
+# the JAX package's names of the same functions (``spmv_xla.py``)
+spmv_coo_xla, spmm_coo_xla, spmv_chunked_xla = spmv_coo, spmm_coo, spmv_chunked

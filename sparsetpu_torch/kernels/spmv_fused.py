@@ -29,7 +29,7 @@ import torch
 from torch import nn
 
 from .. import _host
-from ..utils.device import require_device
+from ..utils.device import CUDA, pick_device
 from ._build import check, library, vector_width
 
 LANES = _host.LANES
@@ -510,15 +510,27 @@ def spill_positions(p) -> np.ndarray:
 
 class FusedDevice(nn.Module):
     """A fused pack held on one device; ``spmv`` is y = A @ x in one
-    kernel launch.  Build it with ``FusedDevice.from_packed``.
+    kernel launch.  ``FusedDevice(packed)`` uploads a ``FusedMatrix`` (from
+    either package's ``pack_fused``), as the JAX constructor does
+    (``spmv_fused.py:354``); ``interpret=True`` keeps it on the CPU for the
+    plain versions (``utils/device.py:pick_device``).
 
     The buffers are checked once, here; on a card the kernel's launch plan
     (every buffer's address, the layout, the spills' flat positions) is
     built once too, so a call checks only x, allocates y's blocks and the
     kernel's workspace, and launches."""
 
-    def __init__(self, meta, buffers: dict):
+    def __init__(self, packed, interpret=False, *, device=CUDA):
         super().__init__()
+        _check_pack(packed)
+        self._setup(packed, self._upload(
+            packed, pick_device(device, interpret),
+            np.asarray(packed.values, np.float32),
+            np.asarray(packed.spill_val, np.float32)))
+
+    def _setup(self, meta, buffers: dict) -> None:
+        """Hold the checked pack's ``buffers`` (``_upload``) and build the
+        launch plan: the one path of every constructor."""
         self.meta = meta            # the host pack: layout scalars, bounds
         self.uniform_slabs = slabs_uniform(meta)
         self.n_spills = int(meta.spill_row.shape[0])
@@ -530,7 +542,7 @@ class FusedDevice(nn.Module):
         self._build_plan()
 
     @staticmethod
-    def _buffers(packed, dev, values, spill_val) -> dict:
+    def _upload(packed, dev, values, spill_val) -> dict:
         """The buffers of a checked pack on ``dev``: the kernel inputs (with
         ``values``), the live counts and, where the pack spills, the spills'
         flat positions, columns and values (``spill_val``)."""
@@ -550,13 +562,8 @@ class FusedDevice(nn.Module):
 
     @classmethod
     def from_packed(cls, packed, device) -> "FusedDevice":
-        """Upload a ``FusedMatrix`` (from either package's ``pack_fused``)
-        to ``device``."""
-        _check_pack(packed)
-        return cls(packed, cls._buffers(
-            packed, require_device(device),
-            np.asarray(packed.values, np.float32),
-            np.asarray(packed.spill_val, np.float32)))
+        """``FusedDevice(packed, device=device)``."""
+        return cls(packed, device=device)
 
     def _build_plan(self) -> None:
         """Check the buffers and, on a card, build the launch plan."""
@@ -769,7 +776,7 @@ def _check_planes(packed_hi, packed_lo) -> None:
         raise ValueError("hi/lo fused packs diverged (values shape)")
 
 
-def pack_fused_df64(matrix, **kw):
+def _fused_df64_packs(matrix, **kw):
     """The fused packs (hi, lo) of an f64 CSR matrix, the hi and lo value
     planes packed as two f32 packs with the same Q/GLW/T
     (``spmv_fused.py:781-803``); None when the layout does not apply: more
@@ -790,6 +797,16 @@ def pack_fused_df64(matrix, **kw):
     return ph, pl
 
 
+def pack_fused_df64(matrix, interpret=False, *, device=CUDA, **kw):
+    """A ``DF64FusedDevice`` for an f64 CSR matrix on ``device``, or None
+    where the fused layout does not apply (the JAX package's,
+    ``spmv_fused.py:781-803``; callers then take ``DF64GStreamDevice``).
+    ``kw`` goes to ``pack_fused`` (``Q``, ``GLW``, ...)."""
+    dev = pick_device(device, interpret)
+    packs = _fused_df64_packs(matrix, **kw)
+    return None if packs is None else DF64FusedDevice(*packs, device=dev)
+
+
 class DF64FusedDevice(FusedDevice):
     """f64 SpMV on the fused layout (counterpart of the JAX package's
     ``DF64FusedDevice``, ``spmv_fused.py:672-778``).  The JAX device keeps
@@ -798,21 +815,34 @@ class DF64FusedDevice(FusedDevice):
     value plane, x stays float64, and the kernel (``fused_spmv_f64``)
     computes in native FP64.  ``spmv`` returns a float64 y; the spills are
     added by the kernel, every one (the JAX device's ``set`` keeps one
-    spill per row: ROADMAP Queue 3).  Build it with ``from_packed``."""
+    spill per row: ROADMAP Queue 3).  ``DF64FusedDevice(packed_hi,
+    packed_lo)`` uploads the (hi, lo) ``FusedMatrix`` pair (from either
+    package's ``pack_fused``), as the JAX constructor does
+    (``spmv_fused.py:679``): the metadata once, the values and the spill
+    values as hi + lo in float64 (padded slots are 0 in both)."""
+
+    def __init__(self, packed_hi, packed_lo, interpret=False, *,
+                 device=CUDA):
+        from .f64emu import join_f64          # f64emu imports this module
+        nn.Module.__init__(self)
+        _check_planes(packed_hi, packed_lo)
+        _check_pack(packed_hi)
+        self._setup(packed_hi, self._upload(
+            packed_hi, pick_device(device, interpret),
+            join_f64(packed_hi.values, packed_lo.values),
+            join_f64(packed_hi.spill_val, packed_lo.spill_val)))
 
     @classmethod
     def from_packed(cls, packed_hi, packed_lo, device) -> "DF64FusedDevice":
-        """Upload the (hi, lo) ``FusedMatrix`` pair (from either package's
-        ``pack_fused``) to ``device``: the metadata once, the values and
-        the spill values as hi + lo in float64 (padded slots are 0 in
-        both)."""
-        from .f64emu import join_f64          # f64emu imports this module
-        _check_planes(packed_hi, packed_lo)
-        _check_pack(packed_hi)
-        return cls(packed_hi, cls._buffers(
-            packed_hi, require_device(device),
-            join_f64(packed_hi.values, packed_lo.values),
-            join_f64(packed_hi.spill_val, packed_lo.spill_val)))
+        """``DF64FusedDevice(packed_hi, packed_lo, device=device)``."""
+        return cls(packed_hi, packed_lo, device=device)
+
+    def spmv_f64(self, x) -> torch.Tensor:
+        """y = A @ x, float64, on this device: ``spmv`` of x as float64
+        (the JAX device's ``spmv_f64``, ``spmv_fused.py:775``, joins its
+        (hi, lo) y; here y is float64 already)."""
+        return self.spmv(torch.as_tensor(x, dtype=torch.float64,
+                                         device=self.device))
 
     def spmm_applicable(self, k: int) -> bool:
         """No k-plane f64 kernel: ``spmm`` runs one SpMV a column."""

@@ -45,7 +45,7 @@ from torch import nn
 from ..pack.final_levels import (_FinalLevel, _FinalLevelMulti,
                                  _FinalLevelV2, build_finish)
 from ..pack.gather_stream import CHUNK, LANES, STRIPE, GStreamMatrix
-from ..utils.device import require_device
+from ..utils.device import CUDA, pick_device, require_device
 from ._build import check, library
 from .final_rows import FinalRows, final_rows, final_rows_multi
 from .spmv_coo import spmv_chunked
@@ -721,13 +721,21 @@ class GStreamDevice(nn.Module):
     ``values`` and ``plan`` replace the pack's value plane and its
     ``build_finish`` plan (the f64 device passes its float64 plane and a
     legacy final; a rank's band a ``FinalRows`` as its final); float64
-    values make x, every sum and y float64."""
+    values make x, every sum and y float64.
 
-    def __init__(self, packed: GStreamMatrix, device,
-                 value_dtype: Optional[torch.dtype] = None, *,
+    The positional arguments are the JAX ``GStreamDevice``'s
+    (``spmv_pallas.py:285-286``).  ``interpret=True`` runs the plain
+    versions on the CPU (``utils/device.py:pick_device``).
+    ``finish_levels`` is accepted and unused, as in the JAX package, whose
+    ``_build_finish`` takes it and never reads it (``spmv_pallas.py:298,
+    301``): ``build_finish`` picks the levels."""
+
+    def __init__(self, packed: GStreamMatrix, interpret=False,
+                 finish_levels: Optional[int] = None,
+                 value_dtype: Optional[torch.dtype] = None, *, device=CUDA,
                  values: Optional[np.ndarray] = None, plan=None):
         super().__init__()
-        dev = require_device(device)
+        dev = pick_device(device, interpret)
         self.meta = packed
         self.stream = ForwardStream(packed, dev, value_dtype, values)
         plan = build_finish(packed) if plan is None else plan
@@ -824,3 +832,10 @@ class GStreamDevice(nn.Module):
             return self.final.apply(vec)
         return spmv_chunked(vec[self.chunk_pos], self.chunk_row,
                             self.meta.nr_rows)
+
+
+def spmv_gstream(packed: GStreamMatrix, x, interpret=False, *,
+                 device=CUDA) -> torch.Tensor:
+    """One-shot y = A @ x: upload ``packed`` and multiply once (the JAX
+    package's convenience wrapper, ``spmv_pallas.py:1190``)."""
+    return GStreamDevice(packed, interpret, device=device).spmv(x)

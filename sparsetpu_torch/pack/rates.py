@@ -29,6 +29,9 @@ from typing import Dict, Iterable, Optional, Tuple
 import numpy as np
 
 from ..utils.config import LANES, SUBLANES
+# HBM_GBPS: device-memory GB/s by card name (the JAX module's table is by
+# TPU kind)
+from ..utils.device import CUDA, HBM_GBPS  # noqa: F401
 
 # Gslot/s of the dual-gather kernel on TPU v5e, keyed (G, Q).  Q=8 -> 1
 # output plane, Q=4 -> 2, Q=2 -> 4, Q=1 -> 8.  (The G select chain costs
@@ -136,9 +139,9 @@ def rate_inputs(G, n_tiles: int):
     return val, xw0, metas
 
 
-def refresh_rates(device="cuda", combos: Optional[Iterable] = None,
-                  n_tiles: Optional[int] = None, *, timer=None,
-                  verbose: bool = False) -> RateTable:
+def refresh_rates(verbose: bool = False, combos: Optional[Iterable] = None,
+                  interpret: bool = False, n_tiles: Optional[int] = None,
+                  *, device=CUDA, timer=None) -> RateTable:
     """Measure the forward kernel's Gslot/s at every (G, Q) on ``device``
     and cache the table for its kind.
 
@@ -149,14 +152,16 @@ def refresh_rates(device="cuda", combos: Optional[Iterable] = None,
     ``n_tiles`` defaults to ``CARD_RATE_TILES`` on the card (4096, the JAX
     package's, on the CPU).  ``timer(fn, device) -> ms a call`` replaces
     the clock; it exists for tests on the CPU, where without it this raises:
-    CPU times are not rates."""
+    CPU times are not rates.  The positional arguments are the JAX
+    function's; ``interpret=True`` is the CPU
+    (``utils/device.py:pick_device``)."""
     import torch
 
     from ..bench.harness import stream_ms
     from ..kernels.spmv_gstream import gstream_chunk_sums
-    from ..utils.device import require_device
+    from ..utils.device import pick_device
 
-    dev = require_device(device)
+    dev = pick_device(device, interpret)
     if timer is None:
         if dev.type != "cuda":
             raise ValueError("refresh_rates on the CPU needs a timer: CPU "

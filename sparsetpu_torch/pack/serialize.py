@@ -29,6 +29,7 @@ import dataclasses
 
 import numpy as np
 
+from ..utils.device import CUDA
 from .gather_stream import GStreamMatrix
 
 
@@ -290,17 +291,18 @@ def _gstream_from(z, prefix: str = "") -> GStreamMatrix:
         ordered=_meta_ordered(mm) if main else False)
 
 
-def load_device(path: str, device="cuda"):
+def load_device(path: str, interpret: bool = False, *, device=CUDA):
     """Restore a device checkpoint written by either package's
     ``save_device`` onto ``device`` (the card by default; raises where
-    there is none): the uploads a pack makes, without the pack or the
-    finish build."""
+    there is none; ``interpret=True`` is the CPU,
+    ``utils/device.py:pick_device``): the uploads a pack makes, without
+    the pack or the finish build."""
     from ..kernels.f64emu import DF64GStreamDevice
     from ..kernels.spmv_fused import DF64FusedDevice, FusedDevice
     from ..kernels.spmv_gstream import GStreamDevice
-    from ..utils.device import require_device
+    from ..utils.device import pick_device
     from .final_levels import FinishPlan, _FinalLevelMulti
-    dev = require_device(device)
+    dev = pick_device(device, interpret)
     with np.load(path) as f:
         z = {k: f[k] for k in f.files}
     if "fused_meta" in z:
@@ -334,4 +336,4 @@ def load_device(path: str, device="cuda"):
         final = None
     plan = FinishPlan(flevels, final,
                       z["fallback_chunk_row"] if final is None else None)
-    return GStreamDevice(packed, dev, plan=plan)
+    return GStreamDevice(packed, device=dev, plan=plan)

@@ -155,7 +155,7 @@ def test_segment_sum_route_matches_jax(monkeypatch):
 def test_bad_blocks_and_block_columns_raise():
     m = CASES["random 200x500"]()
     with pytest.raises(ValueError, match="blocks"):
-        st.BSRDevice(_host.csr_to_bsr(m, block_shape=(4, 128)), "cpu")
+        st.BSRDevice(_host.csr_to_bsr(m, block_shape=(4, 128)), device="cpu")
     with pytest.raises(ValueError, match="blocks"):
         jbsr.BSRDevice(jax_csr_to_bsr(m, block_shape=(8, 64)),
                        interpret=True)
@@ -163,8 +163,8 @@ def test_bad_blocks_and_block_columns_raise():
     b.col_ind = b.col_ind.copy()
     b.col_ind[-1] = 4                  # x has 500 columns: 4 segments
     with pytest.raises(ValueError, match="block column"):
-        st.BSRDevice(b, "cpu")
-    d = st.BSRDevice(_host.csr_to_bsr(m), "cpu")
+        st.BSRDevice(b, device="cpu")
+    d = st.BSRDevice(_host.csr_to_bsr(m), device="cpu")
     with pytest.raises(ValueError, match="x has shape"):
         d.spmv(np.ones(499))
     with pytest.raises(ValueError, match="bcol"):

@@ -40,7 +40,7 @@ def _gold_ok(m, x, y):
     lambda: _host.fem_poisson_3d(24, np.float32)])
 def test_bsr_kernel_matches_plain_on_card(cuda, make):
     m = make()
-    d = st.BSRDevice(_host.csr_to_bsr(m), cuda)
+    d = st.BSRDevice(_host.csr_to_bsr(m), device=cuda)
     x = np.random.default_rng(3).standard_normal(m.nr_cols)
     x2 = d.prepare_x(x)
     before = bsr.bsr_partials.launches
@@ -63,7 +63,7 @@ def test_bsr_kernel_matches_plain_on_card(cuda, make):
 @pytest.mark.gpu
 def test_bsr_wrapper_raises_on_bad_input(cuda):
     m = _host.random_csr(200, 500, density=0.05, seed=72)
-    d = st.BSRDevice(_host.csr_to_bsr(m), cuda)
+    d = st.BSRDevice(_host.csr_to_bsr(m), device=cuda)
     x2 = d.prepare_x(np.ones(m.nr_cols))
     with pytest.raises(ValueError):
         bsr.bsr_partials(d.blocks.double(), d.bcol, x2)
@@ -75,7 +75,7 @@ def test_bsr_wrapper_raises_on_bad_input(cuda):
 def test_pcg_on_bsr_on_card(cuda):
     """PCG through the BSR operator: #14 and the final once an SpMV."""
     m = _host.fem_poisson_3d(16, np.float32)
-    d = st.BSRDevice(_host.csr_to_bsr(m), cuda)
+    d = st.BSRDevice(_host.csr_to_bsr(m), device=cuda)
     before = bsr.bsr_partials.launches
     res = st.pcg(d.spmv, torch.ones(m.nr_rows, device=cuda),
                  st.jacobi_preconditioner(m, device=cuda), tol=1e-5,

@@ -1,9 +1,11 @@
 """The port's public names against the JAX package's: ``__all__`` of the
-top level, of ``formats`` and of ``pack``.  Every name of ``sparsetpu`` is
-in ``sparsetpu_torch`` but those listed in ``MISSING``, each with its
-reason; the port's additional names are listed too, so that a name that
-appears or goes in either package shows here."""
+top level, of ``formats``, ``pack``, ``utils`` and ``bench``.  Every name of
+``sparsetpu`` is in ``sparsetpu_torch`` but those listed in ``MISSING``,
+each with its reason; the port's additional names are listed too, so that
+a name that appears or goes in either package shows here.  Keywords,
+members and every other module: ``tests/test_torch_surface.py``."""
 
+import dataclasses
 import importlib
 
 import pytest
@@ -68,3 +70,31 @@ def test_subpackage_names_match_the_reference(sub):
             assert (a.__name__, type(a)) == (b.__name__, type(b)), name
         else:
             assert a == b, name                 # constants, numpy types
+
+
+# the port's own names in ``utils`` and ``bench`` beyond the reference's:
+# the device rule and the card's facts; the CUDA-event timers
+SUB_ADDED = {
+    "utils": {"CUDA", "HBM_GBPS", "card_line", "hbm_gbps", "pick_device",
+              "require_device"},
+    "bench": {"call_ms", "stream_ms"},
+}
+
+
+@pytest.mark.parametrize("sub", ["utils", "bench"])
+def test_utils_and_bench_names_match_the_reference(sub):
+    ref = importlib.import_module(f"sparsetpu.{sub}")
+    port = importlib.import_module(f"sparsetpu_torch.{sub}")
+    assert set(port.__all__) - set(ref.__all__) == SUB_ADDED[sub]
+    assert set(ref.__all__) <= set(port.__all__)
+    for name in ref.__all__:
+        a, b = getattr(ref, name), getattr(port, name)
+        if isinstance(a, type) or callable(a):
+            # the reference's own class or function: the port's copy
+            assert b.__module__.startswith("sparsetpu_torch."), name
+            assert (a.__name__, type(a)) == (b.__name__, type(b)), name
+        elif dataclasses.is_dataclass(a):
+            assert type(a).__name__ == type(b).__name__, name
+            assert dataclasses.asdict(a) == dataclasses.asdict(b), name
+        else:
+            assert a == b, name                 # the layout constants

@@ -8,7 +8,7 @@ interpret mode, their (hi, lo) results joined with ``join_f64``) and the
 port's plain PyTorch versions, which are what its wrappers run on CPU
 tensors:
 
-  packs     ``pack_fused_df64`` and ``pack_gstream_df64`` (with the legacy
+  packs     ``_fused_df64_packs`` and ``pack_gstream_df64`` (with the legacy
             final) byte-identical to the JAX device's;
   #10       ``fused_spmv_reference`` in f64 vs ``_fused_df64_blocks``;
   #11       ``gstream_chunk_sums_reference`` in f64 vs ``_df64_chunk_sums``
@@ -100,7 +100,7 @@ def test_split_and_join_match_jax():
 def _fused_case(case):
     make, kw, regime = REGIMES[case]
     m = _f64(make())
-    packs = sf.pack_fused_df64(m, **kw)
+    packs = sf._fused_df64_packs(m, **kw)
     assert packs is not None and regime(packs[0]), case
     return m, kw, packs
 
@@ -171,7 +171,7 @@ def test_numpy_engine_spills_are_added():
     adds them with ``index_add_`` and meets the gold."""
     m = _host.random_csr(1000, 8000, density=0.004, seed=1,
                          dtype=np.float64)
-    ph, pl = sf.pack_fused_df64(m, use_native=False)
+    ph, pl = sf._fused_df64_packs(m, use_native=False)
     _, counts = np.unique(ph.spill_row, return_counts=True)
     assert ph.spill_row.size == 4360 and (counts > 1).sum() > 800
     x = np.random.default_rng(2).standard_normal(m.nr_cols)
@@ -182,7 +182,7 @@ def test_numpy_engine_spills_are_added():
 def test_fused_df64_returns_none_where_jax_does():
     wide = _host.random_csr(10, sf.MAX_RESIDENT_COLS_DF64 + 128,
                             density=1e-5, seed=0)
-    assert sf.pack_fused_df64(wide) is None
+    assert sf.pack_fused_df64(wide, interpret=True) is None
     assert jax_pack_df64(wide, interpret=True) is None
 
 
@@ -226,7 +226,7 @@ def test_ill_conditioned_rows_keep_f64_precision():
 def classic():
     """(m, port device, JAX device) of a small f64 matrix."""
     m = _host.random_csr(1500, 2000, density=0.01, seed=7)
-    return m, pf.DF64GStreamDevice(m, "cpu"), jf.DF64GStreamDevice(
+    return m, pf.DF64GStreamDevice(m, device="cpu"), jf.DF64GStreamDevice(
         m, interpret=True)
 
 
@@ -340,7 +340,7 @@ def test_spmm_df64_on_the_fused_device_matches_jax():
     against the JAX device's."""
     m = _host.random_csr(300, 2000, density=0.01, seed=1)
     X = np.random.default_rng(3).standard_normal((m.nr_cols, 2))
-    ph, pl = sf.pack_fused_df64(m)
+    ph, pl = sf._fused_df64_packs(m)
     d = sf.DF64FusedDevice.from_packed(ph, pl, "cpu")
     jd = JaxDF64Fused(ph, pl, interpret=True)
     Y = pf.spmm_df64(d, X).numpy()
@@ -359,7 +359,7 @@ def test_segment_sum_route(monkeypatch):
     none = classmethod(lambda cls, *a, **k: None)
     monkeypatch.setattr(fl._FinalLevel, "build", none)
     monkeypatch.setattr(jsp._FinalLevel, "build", none)
-    d = pf.DF64GStreamDevice(m, "cpu")
+    d = pf.DF64GStreamDevice(m, device="cpu")
     jd = jf.DF64GStreamDevice(m, interpret=True)
     assert d.final is None and jd.final is None
     x = np.random.default_rng(8).standard_normal(m.nr_cols)
@@ -378,7 +378,7 @@ def test_wrappers_reject_what_the_f64_kernels_do_not_take():
     fwd = sg.ForwardStream(p32, "cpu", values=p32.values.astype(np.float64))
     with pytest.raises(ValueError, match="GL"):
         fwd(torch.zeros(p32.padded_cols // 128, 128, dtype=torch.float64))
-    d = pf.DF64GStreamDevice(m, "cpu")
+    d = pf.DF64GStreamDevice(m, device="cpu")
     with pytest.raises(ValueError, match="x2"):
         d.stream(torch.zeros(d.meta.padded_cols // 128, 128))
     with pytest.raises(ValueError, match="float64"):
@@ -386,7 +386,7 @@ def test_wrappers_reject_what_the_f64_kernels_do_not_take():
     with pytest.raises(ValueError, match="legacy"):
         d.final.grid_multi(torch.zeros(d.meta.chunk_row.size, 2,
                                        dtype=torch.float64))
-    fd = sf.DF64FusedDevice.from_packed(*sf.pack_fused_df64(m), "cpu")
+    fd = sf.DF64FusedDevice.from_packed(*sf._fused_df64_packs(m), "cpu")
     with pytest.raises(ValueError, match="f64"):
         fd.blocks_multi(torch.zeros(fd.meta.GX * 1024, 2,
                                     dtype=torch.float64))

@@ -58,7 +58,7 @@ def _gold_multi_ok(m, X, Y):
 def _fused(case, device):
     make, kw, regime = REGIMES[case]
     m = make()
-    ph, pl = sf.pack_fused_df64(m, **kw)
+    ph, pl = sf._fused_df64_packs(m, **kw)
     assert regime(ph), case
     return m, sf.DF64FusedDevice.from_packed(ph, pl, device)
 
@@ -202,7 +202,7 @@ def test_classic_f64_segment_sum_route_on_card(cuda, monkeypatch):
     m = _host.random_csr(3000, 6000, density=0.004, seed=5)
     monkeypatch.setattr(fl._FinalLevel, "build",
                         classmethod(lambda cls, *a, **k: None))
-    d = pf.DF64GStreamDevice(m, cuda)
+    d = pf.DF64GStreamDevice(m, device=cuda)
     assert d.final is None
     x = np.random.default_rng(9).standard_normal(m.nr_cols)
     _gold_ok(m, x, d.spmv(x))
@@ -245,7 +245,7 @@ def test_fused_f64_device_call_matches_plain_on_card(cuda, case):
     against its plain version; one launch a call."""
     make, kw, regime = {**REGIMES, **_tf.RING_EDGES}[case]
     m = make()
-    ph, pl = sf.pack_fused_df64(m, **kw)
+    ph, pl = sf._fused_df64_packs(m, **kw)
     assert regime(ph), case
     d = sf.DF64FusedDevice.from_packed(ph, pl, cuda)
     x = torch.as_tensor(np.random.default_rng(5).standard_normal(m.nr_cols),

@@ -134,12 +134,12 @@ def test_no_device_keeps_tpu_tables():
                                          "cpu")
     assert d.final.rows.n_entries > 0 and not hasattr(d.final, "cells")
     b = st.BSRDevice(_host.csr_to_bsr(_host.fem_poisson_3d(
-        4, np.float32)), "cpu")
+        4, np.float32)), device="cpu")
     assert b.final is not None and buffers(b.final) == {
         "rows.rowptr", "rows.idx", "rows.by_length", "rows.long_rows"}
     p = _host.pack_gstream(_host.random_csr(1500, 3000, 0.004, seed=21,
                                             dtype=np.float32), G=1, Q=8)
-    d = sg.GStreamDevice(p, "cpu")
+    d = sg.GStreamDevice(p, device="cpu")
     assert isinstance(d.final, sg.FinalDevice) and not len(d.flevels)
     assert {n for n in buffers(d) if n.startswith("final.")} == {
         "final.rows.rowptr", "final.rows.idx", "final.rows.by_length",

@@ -44,7 +44,7 @@ def _device(case, dtype):
         return m, sf.FusedDevice.from_packed(p, "cpu")
     m = _host.CSRMatrix(m.row_ptr, m.col_ind, m.values.astype(np.float64),
                         m.nr_rows, m.nr_cols)
-    packs = sf.pack_fused_df64(m, **kw)
+    packs = sf._fused_df64_packs(m, **kw)
     assert packs is not None and regime(packs[0]), case
     return m, sf.DF64FusedDevice.from_packed(*packs, "cpu")
 

@@ -228,7 +228,7 @@ def test_device_spmv_matches_jax_and_gold(case):
     m, kw = DEVICES[case]()
     p = _host.pack_gstream(m, **kw)
     jdev = jsp.GStreamDevice(p, interpret=True)
-    dev = sg.GStreamDevice(p, "cpu")
+    dev = sg.GStreamDevice(p, device="cpu")
     assert type(dev.plan.final).__name__ == type(jdev.final).__name__
     assert len(dev.flevels) == len(jdev.finish)
     if case == "f_levels_legacy":
@@ -245,7 +245,7 @@ def test_f_level_positions_match_jax():
     m = _heavy_matrix()
     p = _host.pack_gstream(m)
     jdev = jsp.GStreamDevice(p, interpret=True)
-    dev = sg.GStreamDevice(p, "cpu")
+    dev = sg.GStreamDevice(p, device="cpu")
     x2 = _x2(p, 2)
     cs = np.array(_jax_chunk_sums(p, x2))
     vec = jnp.asarray(cs).reshape(-1)
@@ -264,7 +264,7 @@ def test_segment_sum_route_matches_jax(monkeypatch):
     m = _heavy_matrix()
     p = _host.pack_gstream(m)
     jdev = jsp.GStreamDevice(p, interpret=True)
-    dev = sg.GStreamDevice(p, "cpu")
+    dev = sg.GStreamDevice(p, device="cpu")
     assert jdev.final is None and dev.final is None
     jrow = np.asarray(jdev.chunk_row)
     keep = np.flatnonzero(jrow != m.nr_rows)
@@ -282,7 +282,8 @@ def test_bf16_device_matches_jax_bf16_mode():
                          dtype=np.float32)
     p = _host.pack_gstream(m)
     x = np.random.default_rng(6).standard_normal(m.nr_cols)
-    y = sg.GStreamDevice(p, "cpu", torch.bfloat16).spmv(x).numpy()
+    y = sg.GStreamDevice(p, value_dtype=torch.bfloat16,
+                         device="cpu").spmv(x).numpy()
     y_jax = np.asarray(jsp.GStreamDevice(
         p, interpret=True, value_dtype=jnp.bfloat16).spmv(x))
     assert y.dtype == np.float32
@@ -294,7 +295,7 @@ def test_bf16_device_matches_jax_bf16_mode():
 def test_prepare_x_pads_to_the_window():
     m = _host.random_csr(300, 2500, density=0.01, seed=1, dtype=np.float32)
     p = _host.pack_gstream(m)
-    dev = sg.GStreamDevice(p, "cpu")
+    dev = sg.GStreamDevice(p, device="cpu")
     x = np.arange(m.nr_cols, dtype=np.float32)
     x2 = dev.prepare_x(x)
     assert tuple(x2.shape) == (p.padded_cols // 128, 128)

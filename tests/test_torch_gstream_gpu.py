@@ -44,7 +44,7 @@ def test_kernels_match_plain_on_card(cuda, kw, vdt):
     m = _host.random_csr(3000, 20_000, density=0.002, seed=1,
                          dtype=np.float32)
     p = _host.pack_gstream(m, **kw)
-    dev = sg.GStreamDevice(p, cuda, vdt)
+    dev = sg.GStreamDevice(p, value_dtype=vdt, device=cuda)
     x2 = dev.prepare_x(np.random.default_rng(0).standard_normal(m.nr_cols))
     n_fwd = sum(sg.gstream_chunk_sums.launches.values())
     ck = dev.stream(x2)

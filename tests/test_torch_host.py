@@ -52,7 +52,8 @@ X = np.random.default_rng(2).standard_normal((m.nr_cols, 3))
 G = spmm_gold(m, X)
 tol = _host.default_tolerance(np.float32, m.nr_nzeros / m.nr_rows)
 for Y in (st.SparseMatrix(m, device="cpu") @ X,
-          spmm.spmm_gstream(st.GStreamDevice(_host.pack_gstream(m), "cpu"),
+          spmm.spmm_gstream(st.GStreamDevice(_host.pack_gstream(m),
+                                             device="cpu"),
                             X)):
     for j in range(3):
         assert _host.verification(G[:, j], Y[:, j].numpy(), *tol) == 0

@@ -97,7 +97,7 @@ def test_segment_sum_route_reads_its_own_positions(monkeypatch):
     monkeypatch.setattr(fl._FinalLevel, "build",
                         classmethod(lambda cls, *a, **k: None))
     m = _host.random_csr(800, 3000, density=0.008, seed=5)
-    d = pf.DF64GStreamDevice(m, "cpu")
+    d = pf.DF64GStreamDevice(m, device="cpu")
     assert d.final is None
     assert torch.equal(d.slots.pos.long(), d.chunk_pos)
     x = np.random.default_rng(8).standard_normal(m.nr_cols)

@@ -77,6 +77,6 @@ def test_forward_at_the_rate_inputs_matches_plain_on_card(cuda, G, Q):
 @pytest.mark.gpu
 def test_refresh_rates_on_card(cuda, tmp_path, monkeypatch):
     monkeypatch.setenv("SPARSETPU_TORCH_CACHE", str(tmp_path))
-    t = rates.refresh_rates(cuda, combos=[(2, 8), (8, 2)], n_tiles=1024)
+    t = rates.refresh_rates(device=cuda, combos=[(2, 8), (8, 2)], n_tiles=1024)
     assert set(t) == {(2, 8), (8, 2)} and all(v > 0 for v in t.values())
     assert rates.load_rates(torch.cuda.get_device_name(cuda)) == t

@@ -96,7 +96,7 @@ def test_refresh_rates_with_a_stub_timer(tmp_path, monkeypatch):
         assert dev == torch.device("cpu")
         shapes.append(tuple(fn().shape))
         return next(ms)
-    t = rates.refresh_rates("cpu", combos=combos, n_tiles=N_TILES,
+    t = rates.refresh_rates(device="cpu", combos=combos, n_tiles=N_TILES,
                             timer=timer)
     assert list(t) == combos
     assert shapes == [(N_TILES * 8 // q, 128) for _, q in combos]
@@ -106,16 +106,16 @@ def test_refresh_rates_with_a_stub_timer(tmp_path, monkeypatch):
 
 def test_refresh_rates_needs_a_timer_on_the_cpu():
     with pytest.raises(ValueError, match="CPU times are not"):
-        rates.refresh_rates("cpu", combos=[(2, 8)], n_tiles=N_TILES)
+        rates.refresh_rates(device="cpu", combos=[(2, 8)], n_tiles=N_TILES)
     with pytest.raises(ValueError, match="multiple of"):
-        rates.refresh_rates("cpu", combos=[(2, 8)], n_tiles=200,
+        rates.refresh_rates(device="cpu", combos=[(2, 8)], n_tiles=200,
                             timer=lambda fn, dev: 1.0)
 
 
 def test_cache_round_trip(tmp_path, monkeypatch):
     monkeypatch.setenv("SPARSETPU_TORCH_CACHE", str(tmp_path / "c"))
     assert rates.load_rates("cpu") is None
-    t = rates.refresh_rates("cpu", n_tiles=N_TILES,
+    t = rates.refresh_rates(device="cpu", n_tiles=N_TILES,
                             timer=lambda fn, dev: 0.25)
     assert set(t) == set(rates.RATE_COMBOS) and len(t) == 24
     assert rates.load_rates("cpu") == t

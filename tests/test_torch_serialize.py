@@ -79,11 +79,11 @@ def _devices(kind, monkeypatch):
         with monkeypatch.context() as mp:
             if kind.endswith("segment_sum"):
                 _no_final_builds(mp)
-            return (m, pf.DF64GStreamDevice(m, "cpu"),
+            return (m, pf.DF64GStreamDevice(m, device="cpu"),
                     jf.DF64GStreamDevice(_jax_csr(m), interpret=True))
     if kind == "fused_f64":
         m = _small(np.float64)
-        ph, pl = sf.pack_fused_df64(m)
+        ph, pl = sf._fused_df64_packs(m)
         return (m, sf.DF64FusedDevice.from_packed(ph, pl, "cpu"),
                 jfu.DF64FusedDevice(ph, pl, interpret=True))
     if kind == "fused":
@@ -100,7 +100,7 @@ def _devices(kind, monkeypatch):
     with monkeypatch.context() as mp:
         if kind == "gl_segment_sum":
             _no_final_builds(mp)
-        return m, sg.GStreamDevice(p, "cpu"), jsp.GStreamDevice(
+        return m, sg.GStreamDevice(p, device="cpu"), jsp.GStreamDevice(
             p, interpret=True)
 
 
@@ -202,14 +202,14 @@ def test_spills_cross_over(kind, tmp_path):
         m = _host.random_csr(1000, 300_000, 40 / 300_000, seed=1,
                              dtype=np.float32)
         p = _host.pack_gstream(m, G=4, Q=8, shuffle_lanes=False)
-        dev = sg.GStreamDevice(p, "cpu")
+        dev = sg.GStreamDevice(p, device="cpu")
         jdev = jsp.GStreamDevice(p, interpret=True)
         assert isinstance(dev.plan.final, fl._FinalLevel)
         assert dev.plan.final.n_spills > 50
         spill_key = "fin_spill_pos"
     else:
         m = _small(np.float64)
-        ph, pl = sf.pack_fused_df64(m, use_native=False)
+        ph, pl = sf._fused_df64_packs(m, use_native=False)
         assert ph.spill_row.size > 500
         dev = sf.DF64FusedDevice.from_packed(ph, pl, "cpu")
         jdev = jfu.DF64FusedDevice(ph, pl, interpret=True)
@@ -254,7 +254,7 @@ def test_multi_final_round_trips_where_the_reference_raises(tmp_path):
                          dtype=np.float32)
     p = _host.pack_gstream(m)
     assert p.sections.shape[0] > 8
-    dev = sg.GStreamDevice(p, "cpu")
+    dev = sg.GStreamDevice(p, device="cpu")
     assert isinstance(dev.plan.final, fl._FinalLevelMulti)
     path = str(tmp_path / "multi.npz")
     ser.save_device(path, dev)
@@ -287,7 +287,8 @@ def test_bf16_device_is_refused(tmp_path):
     p = _host.pack_gstream(_small())
     with pytest.raises(ValueError, match="bf16"):
         ser.save_device(str(tmp_path / "p.npz"),
-                        sg.GStreamDevice(p, "cpu", torch.bfloat16))
+                        sg.GStreamDevice(p, value_dtype=torch.bfloat16,
+                                         device="cpu"))
     path = str(tmp_path / "j.npz")
     jser.save_device(path, jsp.GStreamDevice(p, interpret=True,
                                              value_dtype=jnp.bfloat16))
@@ -308,8 +309,9 @@ def test_save_device_rejects_what_it_cannot_save(what, tmp_path):
         device = object()
     elif what == "band_map":
         rows = FinalRows.from_chunk_row(p.chunk_row, p.nr_rows, "cpu")
-        device = sg.GStreamDevice(p, "cpu",
-                                  plan=fl.FinishPlan([], rows, None))
+        device = sg.GStreamDevice(p,
+                                  plan=fl.FinishPlan([], rows, None),
+                                  device="cpu")
     else:
         ph, pl = pf.pack_gstream_df64(_small(np.float64))
         rows = FinalRows.from_chunk_row(ph.chunk_row, ph.nr_rows, "cpu")

@@ -163,7 +163,7 @@ def test_chunk_sums_multi_match_jax(g, q):
     p = _host.pack_gstream(m, G=g, Q=q)
     assert (p.G, p.Q, p.GL) == (g, q, 0)
     X = _X(m.nr_cols, 3, seed=g)
-    dev = sg.GStreamDevice(p, "cpu")
+    dev = sg.GStreamDevice(p, device="cpu")
     before = sp.gstream_chunk_sums_multi.launches
     cs = dev.stream.forward_multi(dev.prepare_x_multi(X))
     assert sp.gstream_chunk_sums_multi.launches == before
@@ -277,7 +277,7 @@ def test_spmm_gstream_matches_jax_and_gold(monkeypatch, case):
         _no_final(monkeypatch)
     m = make()
     p = _host.pack_gstream(m, **kw)
-    dev = sg.GStreamDevice(p, "cpu")
+    dev = sg.GStreamDevice(p, device="cpu")
     assert type(dev.final).__name__ == final_kind
     assert bool(len(dev.flevels)) == has_f
     if case in ("legacy", "flat"):
@@ -324,7 +324,8 @@ def test_spmm_gstream_bf16_meets_jax_and_gold_at_bf16_tolerance():
                          dtype=np.float32)
     p = _host.pack_gstream(m)
     X = _X(m.nr_cols, 3, seed=6)
-    Y = sp.spmm_gstream(sg.GStreamDevice(p, "cpu", torch.bfloat16),
+    Y = sp.spmm_gstream(sg.GStreamDevice(p, value_dtype=torch.bfloat16,
+                                         device="cpu"),
                         X).numpy()
     assert Y.dtype == np.float32
     _gold_ok(m, X, Y, "bfloat16")
@@ -342,7 +343,7 @@ def test_spmm_gstream_gl_pinned_adds_the_tile_bases():
                          dtype=np.float32)
     p = _host.pack_gstream(m, G=8, GL=2)
     assert p.GL == 2
-    dev = sg.GStreamDevice(p, "cpu")
+    dev = sg.GStreamDevice(p, device="cpu")
     X = _X(m.nr_cols, 2, seed=2)
     Y = sp.spmm_gstream(dev, X).numpy()
     _gold_ok(m, X, Y)
@@ -354,7 +355,7 @@ def test_spmm_gstream_rejects_other_devices_and_shapes():
     with pytest.raises(TypeError, match="GStreamDevice"):
         sp.spmm_gstream(sf.FusedDevice.from_packed(_host.pack_fused(m),
                                                    "cpu"), _X(2000, 2))
-    dev = sg.GStreamDevice(_host.pack_gstream(m), "cpu")
+    dev = sg.GStreamDevice(_host.pack_gstream(m), device="cpu")
     with pytest.raises(ValueError, match="X has shape"):
         sp.spmm_gstream(dev, _X(1999, 2))
     with pytest.raises(ValueError, match="X has shape"):

@@ -138,7 +138,8 @@ def test_classic_spmm_kernels_match_plain_on_card(cuda, kw, vdt, k):
     final; Y against the gold; one forward launch a forward stream."""
     m = _host.random_csr(3000, 20_000, density=0.002, seed=1,
                          dtype=np.float32)
-    dev = sg.GStreamDevice(_host.pack_gstream(m, **kw), cuda, vdt)
+    dev = sg.GStreamDevice(_host.pack_gstream(m, **kw), value_dtype=vdt,
+                           device=cuda)
     X = _X(m.nr_cols, k, seed=2)
     Xp = dev.prepare_x_multi(X)
     before = sp.gstream_chunk_sums_multi.launches

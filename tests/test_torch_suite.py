@@ -8,9 +8,10 @@ against the JAX package's ``run_suite``.
               the JAX row is built by the JAX ``run_suite`` from the port's
               measurement (its ``fetch`` and ``bench_spmv`` stubbed: the
               JAX ``fetch`` downloads), so the two rows agree key by key;
-  skip        a suite matrix missing from the cache, without
-              ``--synthetic``: the row is ``skip``, the error the port's
-              ``fetch`` raises (FileNotFoundError) its reason;
+  skip        a suite matrix missing from the cache, with no mirror to
+              download from and without ``--synthetic``: the row is
+              ``skip``, the error the port's ``fetch`` raises
+              (ConnectionError, as the JAX ``fetch``) its reason;
   structured  ``_structured_suite``'s names, and each generator's matrix,
               equal the JAX package's.
 """
@@ -34,8 +35,10 @@ from sparsetpu_torch.formats.io import write_matrix
 
 @pytest.fixture
 def cache(tmp_path, monkeypatch):
-    """An empty suite cache directory of the port's."""
+    """An empty suite cache directory of the port's, and no mirror to
+    download from (``fetch`` tries none)."""
     monkeypatch.setenv("SPARSETPU_TORCH_SS_DIR", str(tmp_path))
+    monkeypatch.setattr(pss, "MIRRORS", ())
     assert pss.cache_dir() == str(tmp_path)
     return tmp_path
 
@@ -96,7 +99,7 @@ def test_a_missing_matrix_is_skipped(cache):
     [row] = suite.run_suite(["pwtk"], verbose=False, device="cpu")
     assert row["status"] == "skip" and "pwtk.mtx" in row["reason"]
     assert set(row) == {"matrix", "status", "reason"}
-    with pytest.raises(FileNotFoundError):
+    with pytest.raises(ConnectionError, match="pwtk.mtx"):
         pss.fetch("pwtk")
 
 
