@@ -3811,6 +3811,7 @@ def main() -> int:
     from sparsetpu_torch import _host as h
     from sparsetpu_torch.kernels import _build
     from sparsetpu_torch.utils.device import card_line, hbm_gbps
+    from sparsetpu_torch.utils.timing import SETUP
 
     card = card_line()
     print(card, flush=True)
@@ -3821,8 +3822,8 @@ def main() -> int:
     # ---- build: the CUDA library and the native packer
     t0 = time.perf_counter()
     lib = _build.library()
-    print(f"built {os.path.relpath(lib.path)} in {lib.build_s:.1f} s",
-          flush=True)
+    print(f"built {os.path.relpath(lib.path)} in "
+          f"{SETUP.phases['csrc']:.1f} s", flush=True)
     for line in lib.log.splitlines():
         if "registers" in line or "spill" in line:
             print("  nvcc:", line.strip())

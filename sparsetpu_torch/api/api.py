@@ -45,6 +45,7 @@ from ..kernels.spmv_gstream import GStreamDevice
 from ..pack.balance import balance_rows
 from ..pack.gather_stream import GStreamMatrix, unpack_gstream
 from ..utils.device import CUDA, pick_device, require_device
+from ..utils.timing import SETUP, span
 
 # the JAX package's backend names and the port's: "pallas" is "auto" (the
 # Pallas kernels, routed), "xla" is "coo" (gather + segment sum)
@@ -52,6 +53,7 @@ BACKENDS = {"auto": "auto", "pallas": "auto", "fused": "fused",
             "coo": "coo", "xla": "coo"}
 
 
+@SETUP.phase("pack")
 def _pack_fused(matrix, config):
     """``pack_fused`` as the JAX package gates it: None where the layout
     does not apply or the pack is pathological (fill < 0.02)."""
@@ -61,6 +63,7 @@ def _pack_fused(matrix, config):
     return fp
 
 
+@SETUP.phase("pack")
 def _pack_classic(matrix, config):
     return _host.pack_gstream(matrix, config, value_dtype=np.float32)
 
@@ -167,6 +170,7 @@ class SparseMatrix:
                         DF64GStreamDevice(matrix, device=self.device))
         self._packed = self._device.meta
 
+    @SETUP.phase("pack")
     def _route_fused(self, matrix):
         """The fused pack of ``matrix`` or of its light rows (the heavy ones
         then go to ``_heavy_dev``), as the JAX package's threshold ladder
@@ -273,16 +277,22 @@ class SparseMatrix:
         """y = A @ x, a tensor on this matrix's device.  A fused matrix
         takes x unpadded: one kernel launch and its output's memset; the
         classic f64 device takes it unpadded too (its forward reads the
-        live slots' columns)."""
-        if self._parts is None and self._heavy_dev is None and \
-                isinstance(self._device, (FusedDevice, DF64GStreamDevice)):
-            d = self._device
-            return d.spmv(torch.as_tensor(x, dtype=d.dtype, device=d.device))
-        return self.spmv_packed_x(self.prepare_x(x))
+        live slots' columns).  One ``sparsetpu.spmv`` span a call."""
+        with span("spmv"):
+            if self._parts is None and self._heavy_dev is None and \
+                    isinstance(self._device, (FusedDevice, DF64GStreamDevice)):
+                d = self._device
+                return d.spmv(torch.as_tensor(x, dtype=d.dtype,
+                                              device=d.device))
+            return self.spmv_packed_x(self.prepare_x(x))
 
     def spmm(self, x) -> torch.Tensor:
         """Y = A @ X (nr_rows, k) for X of shape (nr_cols, k); float64 X
-        and Y for an f64 config."""
+        and Y for an f64 config.  One ``sparsetpu.spmm`` span a call."""
+        with span("spmm"):
+            return self._spmm(x)
+
+    def _spmm(self, x) -> torch.Tensor:
         if self.backend == "coo":
             x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
             return spmm_coo(self._row_ind, self._col_ind, self._values, x,

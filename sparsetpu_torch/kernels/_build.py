@@ -18,7 +18,8 @@ are measurement kernels.
 per source, all at once, then one link.  The library
 exposes plain C entry points, bound with ctypes (every pointer and the
 stream as ``c_void_p``), so nothing includes PyTorch's headers and a build
-takes seconds.  The file name carries a hash of the sources, the headers
+takes seconds; the build or load is ``utils/timing.py:SETUP``'s phase
+``csrc``.  The file name carries a hash of the sources, the headers
 beside them and the flags: an edited ``.cu`` or ``.cuh`` builds a new
 library.  A failed build raises with nvcc's stderr.
 """
@@ -31,7 +32,8 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
+
+from ..utils.timing import SETUP
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -47,7 +49,6 @@ class _Library:
         self.lib = None
         self.path = None
         self.log = ""
-        self.build_s = 0.0
 
 
 _LIBRARY = _Library()
@@ -100,22 +101,21 @@ def library() -> _Library:
     """Build (if needed) and load the kernels' library."""
     if _LIBRARY.lib is not None:
         return _LIBRARY
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
-    headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources + headers:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    path = os.path.join(BUILD_DIR,
-                        f"libsparsetpu_torch_{h.hexdigest()[:16]}.so")
-    t0 = time.perf_counter()
-    if not os.path.exists(path):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        _LIBRARY.log = _compile_and_link(sources, tmp)
-        os.replace(tmp, path)   # atomic: concurrent builds agree
-    _LIBRARY.build_s = time.perf_counter() - t0
-    lib = ctypes.CDLL(path)
+    with SETUP.phase("csrc"):
+        sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+        headers = sorted(glob.glob(os.path.join(CSRC, "*.cuh")))
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for src in sources + headers:
+            with open(src, "rb") as f:
+                h.update(f.read())
+        path = os.path.join(BUILD_DIR,
+                            f"libsparsetpu_torch_{h.hexdigest()[:16]}.so")
+        if not os.path.exists(path):
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{path}.{os.getpid()}.tmp"
+            _LIBRARY.log = _compile_and_link(sources, tmp)
+            os.replace(tmp, path)   # atomic: concurrent builds agree
+        lib = ctypes.CDLL(path)
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     # the fused SpMV: a plan (``spmv_fused._Plan``) built once, then a call
     lib.fused_spmv_prepare.restype = i

@@ -32,6 +32,7 @@ from torch import nn
 
 from ..pack.final_levels import _FinalLevel
 from ..utils.device import CUDA, pick_device
+from ..utils.timing import span
 from ._build import check, library
 from .spmv_gstream import _require, final_device
 
@@ -70,28 +71,32 @@ def bsr_partials(blocks, bcol, x2) -> torch.Tensor:
     On CUDA tensors it launches ``csrc/bsr_spmv.cu`` on the current stream
     (or raises); on CPU tensors it runs ``bsr_partials_reference``.  Every
     ``bcol`` must index a row of ``x2`` (``BSRDevice`` checks at upload).
-    ``bsr_partials.launches`` counts launches."""
-    if x2.device.type == "cpu":
-        return bsr_partials_reference(blocks, bcol, x2)
-    if x2.device.type != "cuda":
-        raise ValueError(f"bsr_partials: unsupported device {x2.device}")
-    nb = _check_partials(blocks, bcol, x2)
-    if blocks.data_ptr() % 16 or x2.data_ptr() % 16:
-        raise ValueError("bsr_partials: blocks and x2 must be 16-byte "
-                         "aligned (float4 loads)")
-    out = torch.empty(nb, BH, device=x2.device)
-    if nb == 0:
+    ``bsr_partials.launches`` counts launches.  A
+    ``sparsetpu.launch.bsr_partials`` span a call."""
+    with span("launch.bsr_partials"):
+        if x2.device.type == "cpu":
+            return bsr_partials_reference(blocks, bcol, x2)
+        if x2.device.type != "cuda":
+            raise ValueError(f"bsr_partials: unsupported device "
+                             f"{x2.device}")
+        nb = _check_partials(blocks, bcol, x2)
+        if blocks.data_ptr() % 16 or x2.data_ptr() % 16:
+            raise ValueError("bsr_partials: blocks and x2 must be 16-byte "
+                             "aligned (float4 loads)")
+        out = torch.empty(nb, BH, device=x2.device)
+        if nb == 0:
+            return out
+        lib = library().lib
+        with torch.cuda.device(x2.device):
+            stream = torch.cuda.current_stream(x2.device).cuda_stream
+            rc = lib.bsr_spmv_launch(
+                ctypes.c_void_p(blocks.data_ptr()),
+                ctypes.c_void_p(bcol.data_ptr()),
+                ctypes.c_void_p(x2.data_ptr()),
+                ctypes.c_void_p(out.data_ptr()), nb, ctypes.c_void_p(stream))
+        check(lib, rc, "bsr_partials launch")
+        bsr_partials.launches += 1
         return out
-    lib = library().lib
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = lib.bsr_spmv_launch(
-            ctypes.c_void_p(blocks.data_ptr()),
-            ctypes.c_void_p(bcol.data_ptr()), ctypes.c_void_p(x2.data_ptr()),
-            ctypes.c_void_p(out.data_ptr()), nb, ctypes.c_void_p(stream))
-    check(lib, rc, "bsr_partials launch")
-    bsr_partials.launches += 1
-    return out
 
 
 bsr_partials.launches = 0

@@ -42,6 +42,7 @@ import torch
 from .. import _host
 from ..pack.final_levels import FinishPlan, _FinalLevel
 from ..utils.device import CUDA, pick_device, require_device
+from ..utils.timing import SETUP, span
 from .spmm import spmm_gstream
 from .spmv_coo import spmv_coo
 from .spmv_fused import DF64FusedDevice
@@ -71,6 +72,7 @@ def split_planes(matrix):
                  for v in (vhi, vlo))
 
 
+@SETUP.phase("pack")
 def pack_gstream_df64(matrix, G=None):
     """The classic f64 packs (hi, lo), as the JAX device packs them
     (``f64emu.py:454-470``): the hi plane with Q = 8 and no lane shuffle,
@@ -102,7 +104,10 @@ class DF64GStreamDevice(GStreamDevice):
     ``DF64GStreamDevice(matrix)`` packs an f64 CSR matrix inside the
     constructor, as the JAX one does (``f64emu.py:445``; ``interpret=True``
     keeps it on the CPU, ``utils/device.py:pick_device``);
-    ``from_packed`` uploads a (hi, lo) pack pair."""
+    ``from_packed`` uploads a (hi, lo) pack pair.  ``SETUP``'s phases:
+    the packs ``pack``, the legacy level's build with its map
+    ``final_rows``, the live slots' ``live_slots``, the rest ``upload``;
+    a call opens ``sparsetpu.device.spmv``."""
 
     def __init__(self, matrix, interpret=False, *, device=CUDA):
         dev = pick_device(device, interpret)
@@ -121,6 +126,7 @@ class DF64GStreamDevice(GStreamDevice):
         self._build(packed_hi, packed_lo, device, plan)
         return self
 
+    @SETUP.phase("upload")
     def _build(self, packed_hi, packed_lo, device, plan=None) -> None:
         if packed_lo.values.shape != packed_hi.values.shape or not all(
                 np.array_equal(getattr(packed_hi, k), getattr(packed_lo, k))
@@ -130,8 +136,9 @@ class DF64GStreamDevice(GStreamDevice):
         if packed_hi.GL:
             raise ValueError("the f64 device takes GL = 0 packs only")
         if plan is None:
-            chunk_row = packed_hi.chunk_row.reshape(-1).astype(np.int64)
-            final = _FinalLevel.build(chunk_row, packed_hi.nr_rows)
+            with SETUP.phase("final_rows"):
+                chunk_row = packed_hi.chunk_row.reshape(-1).astype(np.int64)
+                final = _FinalLevel.build(chunk_row, packed_hi.nr_rows)
             plan = FinishPlan([], final, chunk_row.astype(np.int32)
                               if final is None else None)
         elif plan.flevels:
@@ -139,9 +146,10 @@ class DF64GStreamDevice(GStreamDevice):
         GStreamDevice.__init__(
             self, packed_hi, device=require_device(device),
             values=join_f64(packed_hi.values, packed_lo.values), plan=plan)
-        read = (torch.unique(self.final.rows.idx) if self.final is not None
-                else self.chunk_pos)
-        self.slots = LiveSlots.build(self.stream, read, packed_hi.nr_cols)
+        with SETUP.phase("live_slots"):
+            read = (torch.unique(self.final.rows.idx)
+                    if self.final is not None else self.chunk_pos)
+            self.slots = LiveSlots.build(self.stream, read, packed_hi.nr_cols)
 
     def forward_live(self, x: torch.Tensor, kernel=None) -> torch.Tensor:
         """The chunk sums the finish reads, through ``kernel`` (default
@@ -153,19 +161,22 @@ class DF64GStreamDevice(GStreamDevice):
         """y = A @ x (nr_rows,) float64: x unpadded, or prepared
         (``prepare_x``) with ``x_is_packed``.  A tensor must be float64 on
         the device already (anything else is converted)."""
-        if isinstance(x, torch.Tensor):
-            if x.dtype != torch.float64 or x.device != self.device:
-                raise ValueError(f"x must be a float64 tensor on "
-                                 f"{self.device}, got {x.dtype} on "
-                                 f"{x.device}")
-        else:
-            x = torch.as_tensor(x, dtype=torch.float64, device=self.device)
-        want = ((self.meta.padded_cols // 128, 128) if x_is_packed
-                else (self.meta.nr_cols,))
-        if tuple(x.shape) != want:
-            raise ValueError(f"x has shape {tuple(x.shape)}, expected "
-                             f"{want}")
-        return self.finish_vec(self.forward_live(x.contiguous().view(-1)))
+        with span("device.spmv"):
+            if isinstance(x, torch.Tensor):
+                if x.dtype != torch.float64 or x.device != self.device:
+                    raise ValueError(f"x must be a float64 tensor on "
+                                     f"{self.device}, got {x.dtype} on "
+                                     f"{x.device}")
+            else:
+                x = torch.as_tensor(x, dtype=torch.float64,
+                                    device=self.device)
+            want = ((self.meta.padded_cols // 128, 128) if x_is_packed
+                    else (self.meta.nr_cols,))
+            if tuple(x.shape) != want:
+                raise ValueError(f"x has shape {tuple(x.shape)}, expected "
+                                 f"{want}")
+            return self.finish_vec(
+                self.forward_live(x.contiguous().view(-1)))
 
     def spmv_f64(self, x) -> torch.Tensor:
         """y = A @ x, float64, on this device: ``spmv`` of x as float64

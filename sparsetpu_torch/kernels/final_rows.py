@@ -43,6 +43,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..utils.timing import span
 from ._build import check, library, vector_width
 
 LANES = 128
@@ -240,38 +241,39 @@ def final_rows(vec: torch.Tensor, rows: FinalRows) -> torch.Tensor:
     not empty (or it raises); on CPU tensors it runs
     ``final_rows_reference``.  ``final_rows.launches`` counts launches by
     bin and type: ``"short"``, ``"long"``, ``"short_f64"``,
-    ``"long_f64"``."""
-    if vec.device.type == "cpu":
-        return final_rows_reference(vec, rows)
-    if vec.device.type != "cuda":
-        raise ValueError(f"final_rows: unsupported device {vec.device}")
-    _check(vec, rows)
-    if rows.idx.data_ptr() % 16:
-        raise ValueError("idx must be 16-byte aligned (the kernel's wide "
-                         "loads)")
-    f64 = vec.dtype == torch.float64
-    lib = library().lib
-    launch = lib.final_rows_f64_launch if f64 else lib.final_rows_launch
-    with torch.cuda.device(vec.device):
-        y = torch.empty(rows.nr_rows, dtype=vec.dtype, device=vec.device)
-        stream = ctypes.c_void_p(
-            torch.cuda.current_stream(vec.device).cuda_stream)
-        for name, n, lst in (
-                ("short", rows.nr_rows if rows.n_long < rows.nr_rows else 0,
-                 None),
-                ("long", rows.n_long, rows.long_rows)):
-            if not n:
-                continue
-            rc = launch(ctypes.c_void_p(rows.rowptr.data_ptr()),
-                        ctypes.c_void_p(rows.idx.data_ptr()),
-                        ctypes.c_void_p(vec.data_ptr()),
-                        ctypes.c_void_p(lst.data_ptr() if lst is not None
-                                        else 0),
-                        n, SHORT_MAX, ctypes.c_void_p(y.data_ptr()),
-                        stream)
-            check(lib, rc, f"final_rows {name} launch")
-            final_rows.launches[name + ("_f64" if f64 else "")] += 1
-    return y
+    ``"long_f64"``.  A ``sparsetpu.launch.final_rows`` span a call."""
+    with span("launch.final_rows"):
+        if vec.device.type == "cpu":
+            return final_rows_reference(vec, rows)
+        if vec.device.type != "cuda":
+            raise ValueError(f"final_rows: unsupported device {vec.device}")
+        _check(vec, rows)
+        if rows.idx.data_ptr() % 16:
+            raise ValueError("idx must be 16-byte aligned (the kernel's wide "
+                             "loads)")
+        f64 = vec.dtype == torch.float64
+        lib = library().lib
+        launch = lib.final_rows_f64_launch if f64 else lib.final_rows_launch
+        with torch.cuda.device(vec.device):
+            y = torch.empty(rows.nr_rows, dtype=vec.dtype, device=vec.device)
+            stream = ctypes.c_void_p(
+                torch.cuda.current_stream(vec.device).cuda_stream)
+            for name, n, lst in (
+                    ("short", rows.nr_rows
+                     if rows.n_long < rows.nr_rows else 0, None),
+                    ("long", rows.n_long, rows.long_rows)):
+                if not n:
+                    continue
+                rc = launch(ctypes.c_void_p(rows.rowptr.data_ptr()),
+                            ctypes.c_void_p(rows.idx.data_ptr()),
+                            ctypes.c_void_p(vec.data_ptr()),
+                            ctypes.c_void_p(lst.data_ptr() if lst is not None
+                                            else 0),
+                            n, SHORT_MAX, ctypes.c_void_p(y.data_ptr()),
+                            stream)
+                check(lib, rc, f"final_rows {name} launch")
+                final_rows.launches[name + ("_f64" if f64 else "")] += 1
+        return y
 
 
 final_rows.launches = collections.Counter()
@@ -287,39 +289,42 @@ def final_rows_multi(vec: torch.Tensor, rows: FinalRows) -> torch.Tensor:
     are longer rows (or it raises); on CPU tensors it runs
     ``final_rows_multi_reference``.  ``final_rows_multi.launches`` counts
     launches by bin and type: ``"short"``, ``"long"``, ``"short_f64"``,
-    ``"long_f64"``."""
-    if vec.device.type == "cpu":
-        return final_rows_multi_reference(vec, rows)
-    if vec.device.type != "cuda":
-        raise ValueError(f"final_rows_multi: unsupported device "
-                         f"{vec.device}")
-    _check(vec, rows, multi=True)
-    f64 = vec.dtype == torch.float64
-    k = vec.shape[1]
-    lib = library().lib
-    with torch.cuda.device(vec.device):
-        Y = torch.empty(rows.nr_rows, k, dtype=vec.dtype, device=vec.device)
-        vw = vector_width(k, vec, Y)
-        max_len = short_max_multi(k // vw)
-        long_rows = rows.rows_over(max_len)
-        stream = ctypes.c_void_p(
-            torch.cuda.current_stream(vec.device).cuda_stream)
-        for name, n, lst in (
-                ("short", rows.nr_rows
-                 if long_rows.numel() < rows.nr_rows else 0, None),
-                ("long", long_rows.numel(), long_rows)):
-            if not n:
-                continue
-            rc = lib.final_rows_multi_launch(
-                int(f64), ctypes.c_void_p(rows.rowptr.data_ptr()),
-                ctypes.c_void_p(rows.idx.data_ptr()),
-                ctypes.c_void_p(vec.data_ptr()),
-                ctypes.c_void_p(lst.data_ptr() if lst is not None else 0),
-                n, max_len, k, vw, ctypes.c_void_p(Y.data_ptr()),
-                stream)
-            check(lib, rc, f"final_rows_multi {name} launch")
-            final_rows_multi.launches[name + ("_f64" if f64 else "")] += 1
-    return Y
+    ``"long_f64"``.  A ``sparsetpu.launch.final_rows_multi`` span a
+    call."""
+    with span("launch.final_rows_multi"):
+        if vec.device.type == "cpu":
+            return final_rows_multi_reference(vec, rows)
+        if vec.device.type != "cuda":
+            raise ValueError(f"final_rows_multi: unsupported device "
+                             f"{vec.device}")
+        _check(vec, rows, multi=True)
+        f64 = vec.dtype == torch.float64
+        k = vec.shape[1]
+        lib = library().lib
+        with torch.cuda.device(vec.device):
+            Y = torch.empty(rows.nr_rows, k, dtype=vec.dtype,
+                            device=vec.device)
+            vw = vector_width(k, vec, Y)
+            max_len = short_max_multi(k // vw)
+            long_rows = rows.rows_over(max_len)
+            stream = ctypes.c_void_p(
+                torch.cuda.current_stream(vec.device).cuda_stream)
+            for name, n, lst in (
+                    ("short", rows.nr_rows
+                     if long_rows.numel() < rows.nr_rows else 0, None),
+                    ("long", long_rows.numel(), long_rows)):
+                if not n:
+                    continue
+                rc = lib.final_rows_multi_launch(
+                    int(f64), ctypes.c_void_p(rows.rowptr.data_ptr()),
+                    ctypes.c_void_p(rows.idx.data_ptr()),
+                    ctypes.c_void_p(vec.data_ptr()),
+                    ctypes.c_void_p(lst.data_ptr() if lst is not None else 0),
+                    n, max_len, k, vw, ctypes.c_void_p(Y.data_ptr()),
+                    stream)
+                check(lib, rc, f"final_rows_multi {name} launch")
+                final_rows_multi.launches[name + ("_f64" if f64 else "")] += 1
+        return Y
 
 
 final_rows_multi.launches = collections.Counter()

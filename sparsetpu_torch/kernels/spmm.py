@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from ..utils.timing import span
 from ._build import check, library, vector_width
 from .spmv_gstream import (CHUNK, LANES, GStreamDevice, _check_final,
                            _check_forward, final_gather_index,
@@ -80,37 +81,39 @@ def gstream_chunk_sums_multi(values, meta, step_window, X, *, T: int, G: int,
     planes) (or it raises); on CPU tensors it runs
     ``gstream_chunk_sums_multi_reference``.
     ``gstream_chunk_sums_multi.launches`` counts launches.  f64 values go
-    to ``gstream_chunk_sums_multi_f64``."""
+    to ``gstream_chunk_sums_multi_f64``.  A
+    ``sparsetpu.launch.gstream_chunk_sums_multi`` span a call."""
     if values.dtype == torch.float64:
         return gstream_chunk_sums_multi_f64(values, meta, step_window, X,
                                             T=T, G=G, P=P, GL=GL,
                                             tile_base=tile_base)
-    if X.device.type == "cpu":
-        return gstream_chunk_sums_multi_reference(
-            values, meta, step_window, X, T=T, G=G, P=P, GL=GL,
-            tile_base=tile_base)
-    if X.device.type != "cuda":
-        raise ValueError(f"gstream_chunk_sums_multi: unsupported device "
-                         f"{X.device}")
-    n_tiles = _check_kernel_forward(values, meta, step_window, tile_base, X,
-                                    T=T, G=G, P=P, GL=GL)
-    k = X.shape[1]
-    lib = library().lib
-    with torch.cuda.device(X.device):
-        out = torch.empty(n_tiles * P * LANES, k, device=X.device)
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = lib.gstream_spmm_launch(
-            ctypes.c_void_p(values.data_ptr()),
-            int(values.dtype == torch.bfloat16),
-            ctypes.c_void_p(meta.data_ptr()),
-            ctypes.c_void_p(step_window.data_ptr()),
-            ctypes.c_void_p(tile_base.data_ptr() if GL else 0),
-            ctypes.c_void_p(X.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            n_tiles, T, G, GL, P, k, vector_width(k, X, out),
-            ctypes.c_void_p(stream))
-    check(lib, rc, "gstream_chunk_sums_multi launch")
-    gstream_chunk_sums_multi.launches += 1
-    return out
+    with span("launch.gstream_chunk_sums_multi"):
+        if X.device.type == "cpu":
+            return gstream_chunk_sums_multi_reference(
+                values, meta, step_window, X, T=T, G=G, P=P, GL=GL,
+                tile_base=tile_base)
+        if X.device.type != "cuda":
+            raise ValueError(f"gstream_chunk_sums_multi: unsupported "
+                             f"device {X.device}")
+        n_tiles = _check_kernel_forward(values, meta, step_window,
+                                        tile_base, X, T=T, G=G, P=P, GL=GL)
+        k = X.shape[1]
+        lib = library().lib
+        with torch.cuda.device(X.device):
+            out = torch.empty(n_tiles * P * LANES, k, device=X.device)
+            stream = torch.cuda.current_stream(X.device).cuda_stream
+            rc = lib.gstream_spmm_launch(
+                ctypes.c_void_p(values.data_ptr()),
+                int(values.dtype == torch.bfloat16),
+                ctypes.c_void_p(meta.data_ptr()),
+                ctypes.c_void_p(step_window.data_ptr()),
+                ctypes.c_void_p(tile_base.data_ptr() if GL else 0),
+                ctypes.c_void_p(X.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                n_tiles, T, G, GL, P, k, vector_width(k, X, out),
+                ctypes.c_void_p(stream))
+        check(lib, rc, "gstream_chunk_sums_multi launch")
+        gstream_chunk_sums_multi.launches += 1
+        return out
 
 
 gstream_chunk_sums_multi.launches = 0
@@ -125,34 +128,36 @@ def gstream_chunk_sums_multi_f64(values, meta, step_window, X, *, T: int,
     On CUDA tensors it launches the f64 form of ``csrc/gstream_spmm.cu``
     (or raises, also for GL > 0); on CPU tensors it runs
     ``gstream_chunk_sums_multi_reference``.
-    ``gstream_chunk_sums_multi_f64.launches`` counts launches."""
+    ``gstream_chunk_sums_multi_f64.launches`` counts launches.  A
+    ``sparsetpu.launch.gstream_chunk_sums_multi_f64`` span a call."""
     if values.dtype != torch.float64:
         raise ValueError("gstream_chunk_sums_multi_f64 takes float64 values")
-    if X.device.type == "cpu":
-        return gstream_chunk_sums_multi_reference(
-            values, meta, step_window, X, T=T, G=G, P=P, GL=GL,
-            tile_base=tile_base)
-    if X.device.type != "cuda":
-        raise ValueError(f"gstream_chunk_sums_multi_f64: unsupported device "
-                         f"{X.device}")
-    n_tiles = _check_kernel_forward(values, meta, step_window, tile_base, X,
-                                    T=T, G=G, P=P, GL=GL)
-    k = X.shape[1]
-    lib = library().lib
-    with torch.cuda.device(X.device):
-        out = torch.empty(n_tiles * P * LANES, k, dtype=torch.float64,
-                          device=X.device)
-        stream = torch.cuda.current_stream(X.device).cuda_stream
-        rc = lib.gstream_spmm_f64_launch(
-            ctypes.c_void_p(values.data_ptr()),
-            ctypes.c_void_p(meta.data_ptr()),
-            ctypes.c_void_p(step_window.data_ptr()),
-            ctypes.c_void_p(X.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            n_tiles, T, G, P, k, vector_width(k, X, out),
-            ctypes.c_void_p(stream))
-    check(lib, rc, "gstream_chunk_sums_multi_f64 launch")
-    gstream_chunk_sums_multi_f64.launches += 1
-    return out
+    with span("launch.gstream_chunk_sums_multi_f64"):
+        if X.device.type == "cpu":
+            return gstream_chunk_sums_multi_reference(
+                values, meta, step_window, X, T=T, G=G, P=P, GL=GL,
+                tile_base=tile_base)
+        if X.device.type != "cuda":
+            raise ValueError(f"gstream_chunk_sums_multi_f64: unsupported "
+                             f"device {X.device}")
+        n_tiles = _check_kernel_forward(values, meta, step_window,
+                                        tile_base, X, T=T, G=G, P=P, GL=GL)
+        k = X.shape[1]
+        lib = library().lib
+        with torch.cuda.device(X.device):
+            out = torch.empty(n_tiles * P * LANES, k, dtype=torch.float64,
+                              device=X.device)
+            stream = torch.cuda.current_stream(X.device).cuda_stream
+            rc = lib.gstream_spmm_f64_launch(
+                ctypes.c_void_p(values.data_ptr()),
+                ctypes.c_void_p(meta.data_ptr()),
+                ctypes.c_void_p(step_window.data_ptr()),
+                ctypes.c_void_p(X.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+                n_tiles, T, G, P, k, vector_width(k, X, out),
+                ctypes.c_void_p(stream))
+        check(lib, rc, "gstream_chunk_sums_multi_f64 launch")
+        gstream_chunk_sums_multi_f64.launches += 1
+        return out
 
 
 gstream_chunk_sums_multi_f64.launches = 0

@@ -30,6 +30,7 @@ from torch import nn
 
 from .. import _host
 from ..utils.device import CUDA, pick_device
+from ..utils.timing import SETUP, span
 from ._build import check, library, vector_width
 
 LANES = _host.LANES
@@ -345,20 +346,21 @@ def fused_spmv(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
     ``csrc/fused_spmv.cu`` on the current stream (or raises); on CPU
     tensors it runs ``fused_spmv_reference``.  ``fused_spmv.launches``
     counts kernel launches, the devices' too.  f64 values go to
-    ``fused_spmv_f64``."""
+    ``fused_spmv_f64``.  A ``sparsetpu.launch.fused_spmv`` span a call."""
     kw = dict(T=T, GLW=GLW, P=P, F1_max=F1_max, F2_max=F2_max, F1S=F1S,
               OBp=OBp, n_slabs=n_slabs, fin_direct=fin_direct)
     args = (values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt, fin2_i1,
             fin2_rt, fin2_group, step_slab, x2)
     if values.dtype == torch.float64:
         return fused_spmv_f64(*args, **kw)
-    if x2.device.type == "cpu":
-        return fused_spmv_reference(*args, **kw)
-    if x2.device.type != "cuda":
-        raise ValueError(f"fused_spmv: unsupported device {x2.device}")
-    out = _launch_free(_named(*args[:-1]), x2, **kw)
-    fused_spmv.launches += 1
-    return out
+    with span("launch.fused_spmv"):
+        if x2.device.type == "cpu":
+            return fused_spmv_reference(*args, **kw)
+        if x2.device.type != "cuda":
+            raise ValueError(f"fused_spmv: unsupported device {x2.device}")
+        out = _launch_free(_named(*args[:-1]), x2, **kw)
+        fused_spmv.launches += 1
+        return out
 
 
 fused_spmv.launches = 0
@@ -375,22 +377,24 @@ def fused_spmv_f64(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
     of ``csrc/fused_spmv.cu`` on the current stream (or raises); on CPU
     tensors it runs ``fused_spmv_reference``.
     ``fused_spmv_f64.launches`` counts kernel launches, the devices'
-    too."""
+    too.  A ``sparsetpu.launch.fused_spmv_f64`` span a call."""
     kw = dict(T=T, GLW=GLW, P=P, F1_max=F1_max, F2_max=F2_max, F1S=F1S,
               OBp=OBp, n_slabs=n_slabs, fin_direct=fin_direct)
     if values.dtype != torch.float64:
         raise ValueError("fused_spmv_f64 takes float64 values and x2")
-    if x2.device.type == "cpu":
-        return fused_spmv_reference(values, meta_i1, meta_rt, tile_base,
-                                    fin1_i1, fin1_rt, fin2_i1, fin2_rt,
-                                    fin2_group, step_slab, x2, **kw)
-    if x2.device.type != "cuda":
-        raise ValueError(f"fused_spmv_f64: unsupported device {x2.device}")
-    out = _launch_free(_named(values, meta_i1, meta_rt, tile_base, fin1_i1,
-                              fin1_rt, fin2_i1, fin2_rt, fin2_group,
-                              step_slab), x2, **kw)
-    fused_spmv_f64.launches += 1
-    return out
+    with span("launch.fused_spmv_f64"):
+        if x2.device.type == "cpu":
+            return fused_spmv_reference(values, meta_i1, meta_rt, tile_base,
+                                        fin1_i1, fin1_rt, fin2_i1, fin2_rt,
+                                        fin2_group, step_slab, x2, **kw)
+        if x2.device.type != "cuda":
+            raise ValueError(f"fused_spmv_f64: unsupported device "
+                             f"{x2.device}")
+        out = _launch_free(_named(values, meta_i1, meta_rt, tile_base,
+                                  fin1_i1, fin1_rt, fin2_i1, fin2_rt,
+                                  fin2_group, step_slab), x2, **kw)
+        fused_spmv_f64.launches += 1
+        return out
 
 
 fused_spmv_f64.launches = 0
@@ -430,28 +434,31 @@ def fused_spmm(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
     On CUDA tensors it checks its inputs, plans and launches
     ``csrc/fused_spmm.cu`` on the current stream (or raises): no live
     counts, no spills; on CPU tensors it runs ``fused_spmm_reference``.
-    ``fused_spmm.launches`` counts kernel launches, the devices' too."""
+    ``fused_spmm.launches`` counts kernel launches, the devices' too.  A
+    ``sparsetpu.launch.fused_spmm`` span a call."""
     kw = dict(T=T, GLW=GLW, P=P, F1_max=F1_max, F2_max=F2_max, F1S=F1S)
     if values.dtype == torch.float64:
         raise ValueError("fused_spmm: there is no f64 SpMM kernel (the f64 "
                          "device runs one fused SpMV a column)")
-    if X.device.type == "cpu":
-        return fused_spmm_reference(
-            values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt, fin2_i1,
-            fin2_rt, fin2_group, step_slab, X, OBp=OBp, n_slabs=n_slabs,
-            fin_direct=fin_direct, GX=GX, **kw)
-    if X.device.type != "cuda":
-        raise ValueError(f"fused_spmm: unsupported device {X.device}")
-    t = _named(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
-               fin2_i1, fin2_rt, fin2_group, step_slab)
-    n_steps, F1A, F2A = _check_inputs(t, X, GX=GX, **kw)
-    with torch.cuda.device(X.device):
-        out = torch.empty(n_slabs * OBp * LANES, X.shape[1], device=X.device)
-        dims = dict(n_steps=n_steps, F1A=F1A, F2A=F2A, OBp=OBp,
-                    fin_direct=fin_direct, **kw)
-        _run_multi(_plan(t, dims, n_out=out.shape[0]), X, out)
-    fused_spmm.launches += 1
-    return out
+    with span("launch.fused_spmm"):
+        if X.device.type == "cpu":
+            return fused_spmm_reference(
+                values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
+                fin2_i1, fin2_rt, fin2_group, step_slab, X, OBp=OBp,
+                n_slabs=n_slabs, fin_direct=fin_direct, GX=GX, **kw)
+        if X.device.type != "cuda":
+            raise ValueError(f"fused_spmm: unsupported device {X.device}")
+        t = _named(values, meta_i1, meta_rt, tile_base, fin1_i1, fin1_rt,
+                   fin2_i1, fin2_rt, fin2_group, step_slab)
+        n_steps, F1A, F2A = _check_inputs(t, X, GX=GX, **kw)
+        with torch.cuda.device(X.device):
+            out = torch.empty(n_slabs * OBp * LANES, X.shape[1],
+                              device=X.device)
+            dims = dict(n_steps=n_steps, F1A=F1A, F2A=F2A, OBp=OBp,
+                        fin_direct=fin_direct, **kw)
+            _run_multi(_plan(t, dims, n_out=out.shape[0]), X, out)
+        fused_spmm.launches += 1
+        return out
 
 
 fused_spmm.launches = 0
@@ -518,8 +525,11 @@ class FusedDevice(nn.Module):
     The buffers are checked once, here; on a card the kernel's launch plan
     (every buffer's address, the layout, the spills' flat positions) is
     built once too, so a call checks only x, allocates y's blocks and the
-    kernel's workspace, and launches."""
+    kernel's workspace, and launches.  The upload is ``SETUP``'s phase
+    ``upload``; a call opens ``sparsetpu.device.spmv`` and, around the
+    checks and the launch, ``sparsetpu.launch.<kernel>``."""
 
+    @SETUP.phase("upload")
     def __init__(self, packed, interpret=False, *, device=CUDA):
         super().__init__()
         _check_pack(packed)
@@ -538,6 +548,7 @@ class FusedDevice(nn.Module):
             self.register_buffer(name, tensor)
         self._kernel = fused_spmv_f64 if self.dtype == torch.float64 \
             else fused_spmv
+        self._launch_span = "launch." + self._kernel.__name__
         self._plan = self._dims = None
         self._build_plan()
 
@@ -662,14 +673,15 @@ class FusedDevice(nn.Module):
         """The flat slab blocks (n_slabs*OBp*128,) of y = A @ x, spills
         included: on a card one launch of the plan (the output zeroed in
         it), on the CPU ``spmv_blocks_reference``."""
-        x = self._x(x, x_is_packed)
-        if x.device.type == "cpu":
-            return self.spmv_blocks_reference(x)
-        out = torch.empty(self.meta.n_slabs * self.meta.OBp * LANES,
-                          dtype=self.dtype, device=self.device)
-        _run(self._plan, x, out)
-        self._kernel.launches += 1
-        return out
+        with span(self._launch_span):
+            x = self._x(x, x_is_packed)
+            if x.device.type == "cpu":
+                return self.spmv_blocks_reference(x)
+            out = torch.empty(self.meta.n_slabs * self.meta.OBp * LANES,
+                              dtype=self.dtype, device=self.device)
+            _run(self._plan, x, out)
+            self._kernel.launches += 1
+            return out
 
     def spmv_blocks_reference(self, x: torch.Tensor) -> torch.Tensor:
         """``spmv_blocks`` in plain PyTorch: x (any length up to the padded
@@ -701,7 +713,8 @@ class FusedDevice(nn.Module):
         """y = A @ x (nr_rows,): x unpadded, or prepared (``prepare_x``)
         with ``x_is_packed``; a view of the slab blocks when the slabs are
         uniform."""
-        return self._rows(self.spmv_blocks(x, x_is_packed))
+        with span("device.spmv"):
+            return self._rows(self.spmv_blocks(x, x_is_packed))
 
     # -- SpMM (counterpart of sparsetpu/kernels/spmv_fused.py:423-474) ------
     def spmm_applicable(self, k: int) -> bool:
@@ -744,14 +757,15 @@ class FusedDevice(nn.Module):
         """The flat slab blocks (n_slabs*OBp*128, k) of Y = A @ X, spills
         included: on a card one launch of the plan (the output zeroed in
         it), on the CPU ``spmm_blocks_reference``."""
-        X = self._x(X, x_is_packed, multi=True)
-        if X.device.type == "cpu":
-            return self.spmm_blocks_reference(X)
-        out = torch.empty(self.meta.n_slabs * self.meta.OBp * LANES,
-                          X.shape[1], device=self.device)
-        _run_multi(self._plan, X, out)
-        fused_spmm.launches += 1
-        return out
+        with span("launch.fused_spmm"):
+            X = self._x(X, x_is_packed, multi=True)
+            if X.device.type == "cpu":
+                return self.spmm_blocks_reference(X)
+            out = torch.empty(self.meta.n_slabs * self.meta.OBp * LANES,
+                              X.shape[1], device=self.device)
+            _run_multi(self._plan, X, out)
+            fused_spmm.launches += 1
+            return out
 
     def spmm(self, X, x_is_packed: bool = False) -> torch.Tensor:
         """Y = A @ X, (nr_rows, k): X unpadded, or prepared
@@ -776,6 +790,7 @@ def _check_planes(packed_hi, packed_lo) -> None:
         raise ValueError("hi/lo fused packs diverged (values shape)")
 
 
+@SETUP.phase("pack")
 def _fused_df64_packs(matrix, **kw):
     """The fused packs (hi, lo) of an f64 CSR matrix, the hi and lo value
     planes packed as two f32 packs with the same Q/GLW/T
@@ -821,6 +836,7 @@ class DF64FusedDevice(FusedDevice):
     (``spmv_fused.py:679``): the metadata once, the values and the spill
     values as hi + lo in float64 (padded slots are 0 in both)."""
 
+    @SETUP.phase("upload")
     def __init__(self, packed_hi, packed_lo, interpret=False, *,
                  device=CUDA):
         from .f64emu import join_f64          # f64emu imports this module

@@ -46,6 +46,7 @@ from ..pack.final_levels import (_FinalLevel, _FinalLevelMulti,
                                  _FinalLevelV2, build_finish)
 from ..pack.gather_stream import CHUNK, LANES, STRIPE, GStreamMatrix
 from ..utils.device import CUDA, pick_device, require_device
+from ..utils.timing import SETUP, span
 from ._build import check, library
 from .final_rows import FinalRows, final_rows, final_rows_multi
 from .spmv_coo import spmv_chunked
@@ -147,51 +148,55 @@ def gstream_chunk_sums(values, meta, step_window, x2, *, T: int, G: int,
     ``gstream_chunk_sums_reference``.  ``gstream_chunk_sums.launches``
     counts launches by scheme: ``"window"`` (GL = 0) and ``"tile_base"``.
     f64 values run on the CPU only: on the card the f64 device's forward is
-    ``live_slot_sums``, which reads the pack's live slots alone.
+    ``live_slot_sums``, which reads the pack's live slots alone.  A
+    ``sparsetpu.launch.gstream_chunk_sums`` span a call.
 
     The streams may be views of a larger pack cut at step boundaries (a
     ring stage's steps).  ``out``, when given, is a contiguous (n_tiles*P,
     128) tensor of the sums' type on x2's device (a range of a caller's
     workspace) that receives the sums, and is returned."""
-    if out is not None:
-        n = step_window.shape[0] * T * P
-        want = torch.float64 if values.dtype == torch.float64 \
-            else torch.float32
-        if tuple(out.shape) != (n, LANES) or out.dtype != want or \
-                out.device != x2.device or not out.is_contiguous():
-            raise ValueError(f"out must be a contiguous {(n, LANES)} {want} "
-                             f"tensor on {x2.device}, got {out.dtype} "
-                             f"{tuple(out.shape)} on {out.device}")
-    if x2.device.type == "cpu":
-        sums = gstream_chunk_sums_reference(values, meta, step_window, x2,
-                                            T=T, G=G, P=P, GL=GL,
-                                            tile_base=tile_base)
-        return sums if out is None else out.copy_(sums)
-    if x2.device.type != "cuda":
-        raise ValueError(f"gstream_chunk_sums: unsupported device "
-                         f"{x2.device}")
-    if values.dtype == torch.float64:
-        raise ValueError("gstream_chunk_sums: no kernel reads the f64 pack "
-                         "whole on the card; the f64 forward is "
-                         "live_slot_sums over the device's LiveSlots")
-    n_tiles = _check_forward(values, meta, step_window, tile_base, x2, T=T,
-                             G=G, P=P, GL=GL)
-    lib = library().lib
-    with torch.cuda.device(x2.device):
-        if out is None:
-            out = torch.empty(n_tiles * P, LANES, device=x2.device)
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        rc = lib.gstream_spmv_launch(
-            ctypes.c_void_p(values.data_ptr()),
-            int(values.dtype == torch.bfloat16),
-            ctypes.c_void_p(meta.data_ptr()),
-            ctypes.c_void_p(step_window.data_ptr()),
-            ctypes.c_void_p(tile_base.data_ptr() if GL else 0),
-            ctypes.c_void_p(x2.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            n_tiles, T, G, GL, P, ctypes.c_void_p(stream))
-    check(lib, rc, "gstream_chunk_sums launch")
-    gstream_chunk_sums.launches["tile_base" if GL else "window"] += 1
-    return out
+    with span("launch.gstream_chunk_sums"):
+        if out is not None:
+            n = step_window.shape[0] * T * P
+            want = torch.float64 if values.dtype == torch.float64 \
+                else torch.float32
+            if tuple(out.shape) != (n, LANES) or out.dtype != want or \
+                    out.device != x2.device or not out.is_contiguous():
+                raise ValueError(f"out must be a contiguous {(n, LANES)} "
+                                 f"{want} tensor on {x2.device}, got "
+                                 f"{out.dtype} {tuple(out.shape)} on "
+                                 f"{out.device}")
+        if x2.device.type == "cpu":
+            sums = gstream_chunk_sums_reference(
+                values, meta, step_window, x2, T=T, G=G, P=P, GL=GL,
+                tile_base=tile_base)
+            return sums if out is None else out.copy_(sums)
+        if x2.device.type != "cuda":
+            raise ValueError(f"gstream_chunk_sums: unsupported device "
+                             f"{x2.device}")
+        if values.dtype == torch.float64:
+            raise ValueError("gstream_chunk_sums: no kernel reads the f64 "
+                             "pack whole on the card; the f64 forward is "
+                             "live_slot_sums over the device's LiveSlots")
+        n_tiles = _check_forward(values, meta, step_window, tile_base, x2,
+                                 T=T, G=G, P=P, GL=GL)
+        lib = library().lib
+        with torch.cuda.device(x2.device):
+            if out is None:
+                out = torch.empty(n_tiles * P, LANES, device=x2.device)
+            stream = torch.cuda.current_stream(x2.device).cuda_stream
+            rc = lib.gstream_spmv_launch(
+                ctypes.c_void_p(values.data_ptr()),
+                int(values.dtype == torch.bfloat16),
+                ctypes.c_void_p(meta.data_ptr()),
+                ctypes.c_void_p(step_window.data_ptr()),
+                ctypes.c_void_p(tile_base.data_ptr() if GL else 0),
+                ctypes.c_void_p(x2.data_ptr()),
+                ctypes.c_void_p(out.data_ptr()), n_tiles, T, G, GL, P,
+                ctypes.c_void_p(stream))
+        check(lib, rc, "gstream_chunk_sums launch")
+        gstream_chunk_sums.launches["tile_base" if GL else "window"] += 1
+        return out
 
 
 gstream_chunk_sums.launches = collections.Counter()
@@ -325,27 +330,31 @@ def live_slot_sums(x: torch.Tensor, slots: LiveSlots) -> torch.Tensor:
     ``csrc/gstream_spmv.cu`` on the current stream (or raises): only the
     read positions are written, the rest of the output is left as
     allocated; on CPU tensors it runs ``live_slot_sums_reference``.
-    ``live_slot_sums.launches`` counts launches."""
-    if x.device.type == "cpu":
-        return live_slot_sums_reference(x, slots)
-    if x.device.type != "cuda":
-        raise ValueError(f"live_slot_sums: unsupported device {x.device}")
-    _check_live(x, slots)
-    lib = library().lib
-    with torch.cuda.device(x.device):
-        out = torch.empty(slots.n_positions, dtype=torch.float64,
-                          device=x.device)
-        rc = lib.live_slots_f64_launch(
-            ctypes.c_void_p(slots.pos.data_ptr()),
-            ctypes.c_void_p(slots.rowptr.data_ptr()),
-            ctypes.c_void_p(slots.col.data_ptr()),
-            ctypes.c_void_p(slots.val.data_ptr()),
-            ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(out.data_ptr()),
-            slots.n_read,
-            ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
-    check(lib, rc, "live_slot_sums launch")
-    live_slot_sums.launches += 1
-    return out.view(-1, LANES)
+    ``live_slot_sums.launches`` counts launches.  A
+    ``sparsetpu.launch.live_slot_sums`` span a call."""
+    with span("launch.live_slot_sums"):
+        if x.device.type == "cpu":
+            return live_slot_sums_reference(x, slots)
+        if x.device.type != "cuda":
+            raise ValueError(f"live_slot_sums: unsupported device "
+                             f"{x.device}")
+        _check_live(x, slots)
+        lib = library().lib
+        with torch.cuda.device(x.device):
+            out = torch.empty(slots.n_positions, dtype=torch.float64,
+                              device=x.device)
+            rc = lib.live_slots_f64_launch(
+                ctypes.c_void_p(slots.pos.data_ptr()),
+                ctypes.c_void_p(slots.rowptr.data_ptr()),
+                ctypes.c_void_p(slots.col.data_ptr()),
+                ctypes.c_void_p(slots.val.data_ptr()),
+                ctypes.c_void_p(x.data_ptr()),
+                ctypes.c_void_p(out.data_ptr()), slots.n_read,
+                ctypes.c_void_p(
+                    torch.cuda.current_stream(x.device).cuda_stream))
+        check(lib, rc, "live_slot_sums launch")
+        live_slot_sums.launches += 1
+        return out.view(-1, LANES)
 
 
 live_slot_sums.launches = 0
@@ -692,9 +701,10 @@ class FinalMultiDevice(MapFinal):
         self.levels = levels
 
 
+@SETUP.phase("final_rows")
 def final_device(final, nr_rows: int, n_positions: int, device):
     """The device module of a host final level, or of a ``FinalRows`` map
-    (moved to ``device``)."""
+    (moved to ``device``): ``SETUP``'s phase ``final_rows``."""
     if isinstance(final, FinalRows):
         if (final.nr_rows, final.n_positions) != (nr_rows, n_positions):
             raise ValueError(f"the map has {final.nr_rows} rows and "
@@ -728,8 +738,11 @@ class GStreamDevice(nn.Module):
     versions on the CPU (``utils/device.py:pick_device``).
     ``finish_levels`` is accepted and unused, as in the JAX package, whose
     ``_build_finish`` takes it and never reads it (``spmv_pallas.py:298,
-    301``): ``build_finish`` picks the levels."""
+    301``): ``build_finish`` picks the levels.  The upload is ``SETUP``'s
+    phase ``upload``, ``build_finish`` its ``pack``; a call opens
+    ``sparsetpu.device.spmv``."""
 
+    @SETUP.phase("upload")
     def __init__(self, packed: GStreamMatrix, interpret=False,
                  finish_levels: Optional[int] = None,
                  value_dtype: Optional[torch.dtype] = None, *, device=CUDA,
@@ -738,7 +751,9 @@ class GStreamDevice(nn.Module):
         dev = pick_device(device, interpret)
         self.meta = packed
         self.stream = ForwardStream(packed, dev, value_dtype, values)
-        plan = build_finish(packed) if plan is None else plan
+        if plan is None:
+            with SETUP.phase("pack"):       # the host finish build
+                plan = build_finish(packed)
         self.plan = plan
         self.flevels = nn.ModuleList(ForwardStream(fp, dev)
                                      for fp in plan.flevels)
@@ -794,8 +809,9 @@ class GStreamDevice(nn.Module):
         return nn.functional.pad(X, (0, 0, 0, pad)).contiguous()
 
     def spmv(self, x, x_is_packed: bool = False) -> torch.Tensor:
-        x2 = x if x_is_packed else self.prepare_x(x)
-        return self.finish_vec(self.stream(x2))
+        with span("device.spmv"):
+            x2 = x if x_is_packed else self.prepare_x(x)
+            return self.finish_vec(self.stream(x2))
 
     def positions(self, chunk_sums: torch.Tensor, kernel=None):
         """The flat position vector: the chunk sums, then each F level's

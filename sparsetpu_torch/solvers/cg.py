@@ -10,6 +10,13 @@ iteration counts agree; reading that condition on the host costs one
 scalar sync an iteration (a CUDA graph or a check every few iterations
 would remove it, later work).  ``fori_loop`` is ``range``.
 
+``cg_df64`` and ``pcg_df64`` open spans (``utils/timing.py:span``) while a
+profiler runs: ``sparsetpu.cg`` (``pcg``) over the solve,
+``sparsetpu.cg.iter`` over each pass of the loop, and inside it
+``sparsetpu.cg.check`` over the host's read of the convergence test (its
+``bool``), where the device drains; the SpMV's own spans nest in the
+pass.  A solve that converges ends with a pass that holds its test alone.
+
 Real types follow the reference: ``cg`` and ``bicgstab`` run in b's float
 type (float32 or float64), ``pcg``, ``gmres``, ``power_iteration`` and
 ``jacobi_iteration`` in float32, and ``cg_df64``/``pcg_df64`` in float64,
@@ -25,6 +32,7 @@ import numpy as np
 import torch
 
 from ..utils.device import require_device
+from ..utils.timing import span
 
 
 class CGResult(NamedTuple):
@@ -100,50 +108,62 @@ def cg_df64(spmv, b, x0=None, tol: float = 1e-12, maxiter: int = 1000, *,
     ``SparseMatrix.spmv`` of an f64 config; a float32 result is widened).
     The stopping test is the reference's, in float32; ``residual_norm`` is
     float32."""
-    b = _vector(b, device, torch.float64)
-    x = _start(b, x0)
-    mv = _typed(spmv, torch.float64)
-    r = b - mv(x)
-    p = r
-    rs = torch.dot(r, r)
-    tol2 = _tol2_f32(tol, b)
-    k = 0
-    while k < maxiter and bool(rs.float() > tol2):
-        ap = mv(p)
-        alpha = rs / torch.dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
-        rs_new = torch.dot(r, r)
-        p = r + (rs_new / rs) * p
-        rs = rs_new
-        k += 1
-    return CGResult(x, k, torch.sqrt(rs.float()))
+    with span("cg"):
+        b = _vector(b, device, torch.float64)
+        x = _start(b, x0)
+        mv = _typed(spmv, torch.float64)
+        r = b - mv(x)
+        p = r
+        rs = torch.dot(r, r)
+        tol2 = _tol2_f32(tol, b)
+        k = 0
+        while k < maxiter:
+            with span("cg.iter"):
+                going = rs.float() > tol2
+                with span("cg.check"):
+                    if not bool(going):
+                        break
+                ap = mv(p)
+                alpha = rs / torch.dot(p, ap)
+                x = x + alpha * p
+                r = r - alpha * ap
+                rs_new = torch.dot(r, r)
+                p = r + (rs_new / rs) * p
+                rs = rs_new
+                k += 1
+        return CGResult(x, k, torch.sqrt(rs.float()))
 
 
 def pcg_df64(spmv, b, m_inv, x0=None, tol: float = 1e-12,
              maxiter: int = 1000, *, device="cuda") -> CGResult:
     """Preconditioned CG in float64: ``cg_df64`` with ``m_inv`` applied to
     the residual each step (its result is widened to float64)."""
-    b = _vector(b, device, torch.float64)
-    x = _start(b, x0)
-    spmv, m_inv = _typed(spmv, b.dtype), _typed(m_inv, b.dtype)
-    r = b - spmv(x)
-    z = m_inv(r)
-    p = z
-    rz = torch.dot(r, z)
-    tol2 = _tol2_f32(tol, b)
-    k = 0
-    while k < maxiter and bool(torch.dot(r, r).float() > tol2):
-        ap = spmv(p)
-        alpha = rz / torch.dot(p, ap)
-        x = x + alpha * p
-        r = r - alpha * ap
+    with span("pcg"):
+        b = _vector(b, device, torch.float64)
+        x = _start(b, x0)
+        spmv, m_inv = _typed(spmv, b.dtype), _typed(m_inv, b.dtype)
+        r = b - spmv(x)
         z = m_inv(r)
-        rz_new = torch.dot(r, z)
-        p = z + (rz_new / rz) * p
-        rz = rz_new
-        k += 1
-    return CGResult(x, k, torch.sqrt(torch.dot(r, r).float()))
+        p = z
+        rz = torch.dot(r, z)
+        tol2 = _tol2_f32(tol, b)
+        k = 0
+        while k < maxiter:
+            with span("pcg.iter"):
+                going = torch.dot(r, r).float() > tol2
+                with span("pcg.check"):
+                    if not bool(going):
+                        break
+                ap = spmv(p)
+                alpha = rz / torch.dot(p, ap)
+                x = x + alpha * p
+                r = r - alpha * ap
+                z = m_inv(r)
+                rz_new = torch.dot(r, z)
+                p = z + (rz_new / rz) * p
+                rz = rz_new
+                k += 1
+        return CGResult(x, k, torch.sqrt(torch.dot(r, r).float()))
 
 
 def cg_step(spmv: Callable[[torch.Tensor], torch.Tensor]):
