@@ -8,7 +8,8 @@ instrumentation:
                   call (``spmv``, ``spmm``), the device module's
                   (``device.spmv``), each kernel wrapper's
                   (``launch.<kernel>``) and the solver's (``pcg``,
-                  ``pcg.iter``, ``pcg.check``; ``cg`` the same);
+                  ``pcg.capture``, ``pcg.iter``, ``pcg.check``,
+                  ``pcg.replay``; ``cg`` the same);
   ``SETUP``       the process's set-up phases, always on: ``pack`` (the
                   host packs, the route's row scan, the host finish
                   build), ``upload`` (the device constructors),
