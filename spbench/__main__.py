@@ -27,7 +27,11 @@ def process_start() -> float:
     return min(_T_IMPORT, time.perf_counter() - age)
 
 
-def main(argv=None) -> int:
+def main(argv=None, root=None, device=None, allowance_s=None) -> int:
+    """The entry point.  ``root`` (the benchmark's folder), ``device``
+    ("cpu" runs with no card) and ``allowance_s`` (a run on ranks: its
+    set-up allowance, ``ranks.SETUP_ALLOWANCE_S`` when None) are for the
+    tests; the command line sets none of them."""
     t_start = process_start()
     ap = argparse.ArgumentParser(prog="python -m spbench")
     ap.add_argument("--workload", required=True)
@@ -36,11 +40,21 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = ap.parse_args(argv)
 
-    from .harness import load_json
+    from .harness import ROOT, load_json
     from .imports import forbidden_loaded
-    chips = int(load_json("workloads", args.workload)["chips"])
+    root = root or ROOT
+    wl = load_json("workloads", args.workload, root)
+    chips = int(wl["chips"])
+    if chips > 1 and "layout" not in load_json("configs", wl["config"],
+                                               root):
+        print(f"spbench: {args.workload} asks for {chips} cards, and its "
+              f"configuration {wl['config']} names no layout "
+              f"(layouts/<name>.py) to cut the matrix by rank",
+              file=sys.stderr)
+        return 5
     import torch
-    if not torch.cuda.is_available() or torch.cuda.device_count() < chips:
+    if device is None and (not torch.cuda.is_available()
+                           or torch.cuda.device_count() < chips):
         print(f"spbench: {args.workload} needs {chips} CUDA device(s); "
               f"torch.cuda.is_available() is {torch.cuda.is_available()}",
               file=sys.stderr)
@@ -52,9 +66,25 @@ def main(argv=None) -> int:
         print(f"spbench: the port was imported from {beside}, not from "
               f"the checkout that holds the benchmark", file=sys.stderr)
         return 4
-    result = harness.run_cell(args.workload, args.seed, args.seconds,
-                      bool(args.trace), t_start)
-    bad = forbidden_loaded()
+    if chips == 1:
+        result = harness.run_cell(args.workload, args.seed, args.seconds,
+                                  bool(args.trace), t_start, device=device,
+                                  root=root)
+        bad = []
+    else:
+        from . import ranks
+        result, parts = ranks.launch(
+            args.workload, args.seed, args.seconds, bool(args.trace),
+            t_start, chips, device=device or "cuda", root=root,
+            allowance_s=allowance_s)
+        differ = ranks.merge_devices(result, parts)
+        if differ:
+            print(f"spbench: the ranks' cards differ: {differ}",
+                  file=sys.stderr)
+            return 6
+        bad = [f"{m} (rank {r})" for r, p in enumerate(parts, 1)
+               for m in p["forbidden"]]
+    bad = forbidden_loaded() + bad
     if bad:
         print(f"spbench: the run loaded {', '.join(bad)}", file=sys.stderr)
         return 3

@@ -16,6 +16,29 @@ or metric is a new file and no edit here:
   metrics/<name>.py        one metric: ``KIND`` (end_to_end or per_layer),
                            ``UNIT``, ``read(run)``, None where the run has
                            nothing for it to read
+  layouts/<name>.py        where a configuration names ``"layout"``:
+                           ``build(run, csr)``, what the traffic kind's
+                           ``prepare`` takes as ``sm``, in place of the
+                           one-card ``SparseMatrix``
+
+A cell whose ``chips`` is N > 1 runs as N ranks, one process a card
+(``ranks.py``): ``python -m spbench`` is rank 0 on ``cuda:0`` and spawns
+ranks 1..N-1, rank r on ``cuda:r``, all joined in one process group (NCCL
+on cards, gloo on the CPU).  Its configuration has to name a layout: it
+is refused at start-up otherwise.  Every rank runs ``run_cell`` with the
+same seed: it generates the matrix, calls the layout's ``build`` (which
+cuts the rank's part by ``run.rank``, ``run.world`` and ``run.group``),
+and the kind's ``prepare``, ``window``, ``trace`` (if traced) and
+``outputs``, since each may hold collectives.  Rank 0 alone calls
+``judge`` and builds the result's line, so the metric readers read rank
+0's ``Run``: its spans, counts and traces.  With N > 1, ``Run.sync``
+synchronises the card and then waits at a barrier of all ranks, so every
+``run.phase`` ends on all ranks together, and a kind agrees on the
+window's end by ``run.agree``; ``timing.traced`` takes ``agree=run.agree``
+so that the ranks retry a trace together.  ``setup_s`` is rank 0's, from
+the launching process's start.  With ``chips`` 1 there is no process, no
+group and no barrier: ``run.group`` is None and ``run.agree`` returns its
+flag.
 """
 
 from __future__ import annotations
@@ -86,6 +109,9 @@ class Run:
     held_ms: Optional[float] = None
     traces: Dict[str, timing.Trace] = dataclasses.field(default_factory=dict)
     spmv_kernels: frozenset = frozenset()
+    rank: int = 0
+    world: int = 1
+    group: object = None
 
     def span(self, name: str, seconds: float) -> None:
         self.spans.setdefault(name, []).append(seconds)
@@ -99,8 +125,23 @@ class Run:
         self.span(name, time.perf_counter() - t)
 
     def sync(self) -> None:
+        """The card's queue drained; with ranks, then a barrier of all."""
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+        if self.group is not None:
+            ids = ({"device_ids": [self.device.index]}
+                   if self.device.type == "cuda" else {})
+            torch.distributed.barrier(group=self.group, **ids)
+
+    def agree(self, flag: bool) -> bool:
+        """True on every rank where ``flag`` is true on all of them (an
+        all-reduce); ``flag`` itself with one rank."""
+        if self.group is None:
+            return bool(flag)
+        t = torch.tensor([int(bool(flag))], device=self.device)
+        torch.distributed.all_reduce(t, torch.distributed.ReduceOp.MIN,
+                                     group=self.group)
+        return bool(t.item())
 
 
 def seeded_rng(seed: int, stream: int) -> np.random.Generator:
@@ -111,19 +152,28 @@ def seeded_rng(seed: int, stream: int) -> np.random.Generator:
 
 
 def run_cell(cell: str, seed: int, seconds: float, trace: bool,
-             t_start: float, device=None, root: str = ROOT) -> dict:
+             t_start: float, device=None, root: str = ROOT,
+             group=None) -> dict:
     """Run ``cell`` once and return its result as a dict (the line the
     benchmark prints).  ``t_start`` is the process's start on the
-    ``time.perf_counter`` clock; ``device`` defaults to the first card."""
+    ``time.perf_counter`` clock; ``device`` defaults to the first card.
+    ``group``: the process group of a run on ranks, None on one card; a
+    rank past 0 returns only its card's name and memory peak."""
     wl = load_json("workloads", cell, root)
     cfg = load_json("configs", wl["config"], root)
     mix = load_json("traffic", wl["traffic"], root)
     kind = load_module("traffic", mix["kind"], root)
     gen = load_module("generators", cfg["generator"], root)
+    layout = (load_module("layouts", cfg["layout"], root)
+              if "layout" in cfg else None)
     dev = torch.device(device or "cuda:0")
     name = (torch.cuda.get_device_name(dev) if dev.type == "cuda"
             else "cpu")
     run = Run(cell, cfg, mix, seed, float(seconds), bool(trace), dev, name)
+    if group is not None:
+        run.group = group
+        run.rank = torch.distributed.get_rank(group)
+        run.world = torch.distributed.get_world_size(group)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -132,9 +182,12 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
     run.nr_rows, run.nr_cols, run.nnz = csr.nr_rows, csr.nr_cols, csr.nnz
     run.value_bytes = csr.values.dtype.itemsize
     with run.phase("pack_upload"):
-        sm = port.SparseMatrix(port.CSRMatrix(
-            csr.row_ptr, csr.col_ind, csr.values, csr.nr_rows, csr.nr_cols),
-            device=dev)
+        if layout is not None:
+            sm = layout.build(run, csr)
+        else:
+            sm = port.SparseMatrix(port.CSRMatrix(
+                csr.row_ptr, csr.col_ind, csr.values, csr.nr_rows,
+                csr.nr_cols), device=dev)
     with run.phase("prepare"):
         state = kind.prepare(run, sm, csr, seeded_rng(seed, 2))
     run.setup_s = time.perf_counter() - t_start
@@ -151,7 +204,9 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool,
         torch.cuda.empty_cache()
 
     with run.phase("judge"):
-        readings = kind.judge(run, csr, outs)
+        readings = kind.judge(run, csr, outs) if run.rank == 0 else None
+    if run.rank:
+        return {"kind": name, "memory_peak_bytes": int(peak)}
     checks, failed = {}, 0
     for key, limit in wl["limits"].items():
         values = readings.get(key) or [float("inf")]

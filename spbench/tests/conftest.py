@@ -3,6 +3,7 @@ cut to sizes a CPU test holds, each cell beside its full-size one, and a
 CG mix of 12 iterations (a small grid's CG converges before 50)."""
 
 import json
+import os
 import shutil
 
 import pytest
@@ -18,8 +19,9 @@ CELLS = {"urand9.spmv": ("urand20.spmv", "urand9", "spmv_stream"),
 
 def make_small_root(path):
     for folder in ("configs", "generators", "traffic", "workloads",
-                   "metrics"):
-        shutil.copytree(f"{harness.ROOT}/{folder}", path / folder)
+                   "metrics", "layouts"):
+        if os.path.isdir(f"{harness.ROOT}/{folder}"):
+            shutil.copytree(f"{harness.ROOT}/{folder}", path / folder)
     for name, (base, sizes) in SMALL.items():
         cfg = harness.load_json("configs", base)
         cfg.update(sizes, name=name)

@@ -14,7 +14,7 @@ the work's events and the trailing ones after.
 from __future__ import annotations
 
 import time
-from typing import Callable, List, NamedTuple
+from typing import Callable, List, NamedTuple, Optional
 
 import numpy as np
 
@@ -55,9 +55,12 @@ class Trace(NamedTuple):
     whole: bool
 
 
-def traced(torch, fn: Callable[[], object], pads=PADS_S) -> Trace:
+def traced(torch, fn: Callable[[], object], pads=PADS_S,
+           agree: Optional[Callable[[bool], bool]] = None) -> Trace:
     """Profile ``fn()`` bracketed by spin kernels; tries ``pads`` in turn
-    and returns the first whole trace, else the last."""
+    and returns the first whole trace, else the last.  ``agree``: on ranks,
+    ``Run.agree``, so that every rank tries again while any rank's trace
+    is not whole."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     trace = None
@@ -88,7 +91,7 @@ def traced(torch, fn: Callable[[], object], pads=PADS_S) -> Trace:
                   else (min((e.start_us for e in work), default=0.0),
                         max((e.end_us for e in work), default=0.0)))
         trace = Trace(work, host, window, whole)
-        if whole:
+        if (whole if agree is None else agree(whole)):
             break
     return trace
 
