@@ -39,7 +39,16 @@ Builds the CUDA kernels and the native packer from this checkout, then:
                    the heavy-row hybrid, light rows fused and heavy rows on a
                    classic device with F levels and the legacy final;
   per-tile base    the roadNet-CA stand-in packed with GL pinned
-                   (``pack_gstream(G=8, GL=2)``) through ``GStreamDevice``.
+                   (``pack_gstream(G=8, GL=2)``) through ``GStreamDevice``;
+  rows kernel      ``csrc/fused_rows.cu`` over the f32 device's row map,
+                   against its plain version and #1's y, the two kernels
+                   timed in turns beside the byte rule's pick
+                   (``FusedDevice.traffic``): at the headline, at the web
+                   graph's light rows, at the ``urand20`` cell's matrix
+                   (seed 1, ``spbench/``'s generator; the rule takes the
+                   rows kernel: one kernel and no memset a call) and at a
+                   band of 8 diagonals (1M rows, fill 1.0: the rule keeps
+                   #1), each beside cuSPARSE on the whole matrix.
 
 and Y = A @ X (SpMM) beside them:
 
@@ -282,6 +291,10 @@ KERNELS = {
                      "sparsetpu/kernels/spmm.py:28"),
     "fused_spmv_f64": ("sparsetpu_torch/csrc/fused_spmv.cu",
                        "sparsetpu/kernels/spmv_fused.py:507"),
+    # no TPU kernel: #1's function over a row map of the pack's live slots
+    "fused_rows": ("sparsetpu_torch/csrc/fused_rows.cu",
+                   "none: a second design of #1 "
+                   "(sparsetpu/kernels/spmv_fused.py:48)"),
     "live_slots_f64": ("sparsetpu_torch/csrc/gstream_spmv.cu",
                        "sparsetpu/kernels/f64emu.py:163"),
     "gstream_spmm_f64": ("sparsetpu_torch/csrc/gstream_spmm.cu",
@@ -586,12 +599,14 @@ class Smoke:
         from sparsetpu_torch.kernels import (_build, bsr, f64emu, spmm,
                                              spmv_fused, spmv_gstream)
         from sparsetpu_torch.kernels import final_rows as fr
+        from sparsetpu_torch.kernels import fused_rows
         from sparsetpu_torch.pack import final_levels, rates
         self.torch, self.st, self.h = torch, st, _host
         self.micro, self.rates, self.fs = micro, rates, fused_stages
         self.fp, self.sc = fused_proto, select_chains
         self.fused, self.sg, self.fl = spmv_fused, spmv_gstream, final_levels
         self.f64, self.bsr, self.fr = f64emu, bsr, fr
+        self.rows = fused_rows
         self.sp, self.spmm_gold, self.build = spmm, spmm_gold, _build
         self._call_ms, self._stream_ms = call_ms, stream_ms
         self.dev = torch.device(device)
@@ -623,6 +638,7 @@ class Smoke:
     # -- launch counts --------------------------------------------------------
     def _zero_counts(self):
         self.fused.fused_spmv.launches = 0
+        self.rows.fused_rows_spmv.launches = 0
         self.sg.gstream_chunk_sums.launches.clear()
         self.fused.fused_spmm.launches = 0
         self.sp.gstream_chunk_sums_multi.launches = 0
@@ -646,6 +662,7 @@ class Smoke:
         r = self.fr.final_rows.launches
         rm = self.fr.final_rows_multi.launches
         return {"fused_spmv": self.fused.fused_spmv.launches,
+                "fused_rows": self.rows.fused_rows_spmv.launches,
                 "gstream_spmv_window": f["window"],
                 "gstream_spmv_tile_base": f["tile_base"],
                 "fused_spmm": self.fused.fused_spmm.launches,
@@ -687,7 +704,7 @@ class Smoke:
             return {"live_slots_f64"} | (
                 {"final_rows_f64"} if d.final is not None else set())
         if isinstance(d, self.fused.FusedDevice):
-            return {"fused_spmv"}
+            return {"fused_rows" if d.kernel == "rows" else "fused_spmv"}
         ks = {"gstream_spmv_tile_base" if d.stream.GL
               else "gstream_spmv_window"}
         if len(d.flevels):
@@ -738,7 +755,9 @@ class Smoke:
 
     # -- per-kernel measurement ------------------------------------------------
     def record(self, name, tag, err, ms, plain_ms, nbytes, flops, lib_ms,
-               extra=None):
+               extra=None, replace=False):
+        """Print a kernel's line; keep its first record, or this one where
+        ``replace``."""
         byte_ms = nbytes / (self.hbm * 1e9) * 1e3
         real = "float64" if name.endswith("_f64") else "float32"
         op_ms = flops / (TFLOPS[real] * 1e12) * 1e3
@@ -750,7 +769,7 @@ class Smoke:
               f"call {lib} | bound {nbytes} B, {flops} flop -> "
               f"{bound_ms:.4f} ms ({by}), kernel at {bound_ms / ms:.3f} of "
               f"it", flush=True)
-        if name not in self.records:
+        if name not in self.records or replace:
             src, rep = KERNELS[name]
             self.records[name] = {
                 "name": name, "route": "cuda", "source": src,
@@ -1205,6 +1224,71 @@ class Smoke:
                   flush=True)
         self.record(name, tag, err, ms["kernel"], ms["plain"], nb,
                     2 * dev.values.numel() * k, lib_ms, extra)
+
+    def rows_kernel(self, dev, x, tag, lib_ms):
+        """The rows kernel over an f32 device's row map (the device's own,
+        or one built here where its rule kept #1) vs its plain version and
+        #1's y; then the two kernels timed in turns (#1, rows, rows, #1),
+        each the device's launch on x unpadded (#1 with its memset), a
+        call and back to back, beside the map's bound and the pick of the
+        device's byte rule (``FusedDevice.traffic``)."""
+        rows, torch = self.rows, self.torch
+        cuda = self.dev.type == "cuda"
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(self.dev)
+            before = torch.cuda.memory_allocated(self.dev)
+        t0 = time.perf_counter()
+        built = rows.FusedRows.build(dev)
+        self.sync()
+        build_s = time.perf_counter() - t0
+        # the build's peak beyond what the card held before it, the map
+        # included, beside the pack it reads (``FusedDevice.bytes_a_call``
+        # of a "tiles" device)
+        peak = torch.cuda.max_memory_allocated(self.dev) - before if cuda \
+            else float("nan")
+        pack = dev.meta.storage_bytes()
+        rm = dev.rows if dev.rows is not None else built
+        kern = lambda: rows.fused_rows_spmv(x, rm)              # noqa: E731
+        plain = lambda: rows.fused_rows_spmv_reference(x, rm)  # noqa: E731
+        tiles = lambda: dev.spmv_blocks(x)                      # noqa: E731
+        yk, yr, yt = kern(), plain(), dev._rows(tiles())
+        self.sync()
+        err = _agree(yk, yr)
+        err_tiles = _agree(yk, yt)
+        runs = {"rows": [], "tiles": []}
+        for which, fn in (("tiles", tiles), ("rows", kern), ("rows", kern),
+                          ("tiles", tiles)):
+            runs[which].append((self.call_ms(fn), self.back_to_back(fn)))
+        ms = {k: float(np.mean([a for a, _ in v])) for k, v in runs.items()}
+        back = {k: float(np.mean([b for _, b in v]))
+                for k, v in runs.items()}
+        plain_ms = self.call_ms(plain, repeats=5)
+        traffic = dev.traffic()
+        pick = self.fused.pick_kernel(traffic)
+        faster = min(back, key=back.get)
+        print(f"  fused_rows [{tag}]: map of {rm.n_rows} rows, {rm.n_live} "
+              f"entries, {rm.width} lanes a row, {rm.long_rows.numel()} "
+              f"long rows, built in {build_s:.3f} s, peak {peak} B beside "
+              f"the map's {built.nbytes} B and the pack's {pack} B; vs #1's "
+              f"y max abs "
+              f"{err_tiles:.3e} | back to back: rows {back['rows']:.4f} ms, "
+              f"#1 {back['tiles']:.4f} ms; a call: rows {ms['rows']:.4f}, "
+              f"#1 {ms['tiles']:.4f} | byte rule: tiles {traffic['tiles']} "
+              f"B, rows {traffic['rows']} B -> {pick!r}, the faster is "
+              f"{faster!r} ({'agrees' if pick == faster else 'DISAGREES'})",
+              flush=True)
+        # the record of the first path whose device runs the rows kernel
+        prior = self.records.get("fused_rows")
+        self.record("fused_rows", tag, err, ms["rows"], plain_ms, rm.nbytes,
+                    2 * rm.n_live, lib_ms,
+                    {"tag": tag, "device_kernel": dev.kernel,
+                     "back_to_back_ms": back["rows"],
+                     "tiles_ms": ms["tiles"],
+                     "tiles_back_to_back_ms": back["tiles"],
+                     "pick": pick, "build_s": build_s,
+                     "build_peak_bytes": peak, "pack_bytes": pack},
+                    replace=dev.kernel == "rows" and (
+                        prior is None or prior["device_kernel"] != "rows"))
 
     def launches_a_call(self, tag, fn):
         """(kernel launches, memsets) in one call of ``fn``, from a
@@ -1962,10 +2046,15 @@ def spgemm_regimes(s):
         b = h.random_csr(rb, cb, density=db, seed=32, dtype=np.float32)
         sa = st.SparseMatrix(a, device=s.dev)
         tag = f"SpGEMM regime {ra}x{ca} @ {rb}x{cb}"
+        # the kernels of the event matrix's device, which ``sa @ b`` builds
+        # again the same (its pick of #1 or the rows kernel)
+        ev = st.SpGEMMPlan(a, b, device=s.dev).event_matrix
+        expected = s.kernels_of(ev.device_module) if ev is not None \
+            else set()
         for operand, name in ((b, "CSR"), (st.SparseMatrix(b, device=s.dev),
                                           "SparseMatrix")):
-            c = s.drive(f"{tag} ({name})", lambda: sa @ operand,
-                        {"fused_spmv"}, main=False)
+            c = s.drive(f"{tag} ({name})", lambda: sa @ operand, expected,
+                        main=False)
             err = _spgemm_gold(h, a, b, c, tag)
         print(f"{tag}: sm @ m and sm @ sm give the gold's pattern, values "
               f"0 errors (max abs {err:.3e})", flush=True)
@@ -3234,14 +3323,15 @@ def reference_programs_headline(s, m, x, xt, sm):
     reference_program(
         s, "headline: bench.py's protocol on SparseMatrix(m, "
         "backend='pallas')", lambda: d.spmv(x2, x_is_packed=True),
-        {"fused_spmv"}, m, x, existing, lambda: _fused_call_agrees(s, d, x2))
+        s.kernels_of(d), m, x, existing,
+        lambda: _fused_call_agrees(s, d, x2))
     del d, x2
     t0 = time.perf_counter()
     fd = fused.FusedDevice(sm.packed, **kw)
     s.ref_s += time.perf_counter() - t0
     reference_program(
         s, "headline: FusedDevice(pack_fused(m)), the phase's pack",
-        lambda: fd.spmv(xt), {"fused_spmv"}, m, x, existing,
+        lambda: fd.spmv(xt), s.kernels_of(fd), m, x, existing,
         lambda: _fused_call_agrees(s, fd, fd.prepare_x(xt)))
 
 
@@ -3435,13 +3525,14 @@ def bench_entry(s, t0):
     print(f"phase bench entry: {time.perf_counter() - t0:.1f} s", flush=True)
 
 
-def one_launch(s, tag, fn):
-    """A fused ``sm @ x`` (or ``sm @ X``) call must be one kernel and one
-    memset."""
+def one_launch(s, tag, fn, memsets=1):
+    """A fused ``sm @ x`` (or ``sm @ X``) call must be one kernel and
+    ``memsets`` memsets (#1 and #6 zero their output, the rows kernel
+    writes every row)."""
     got = s.launches_a_call(tag, fn)
-    if got is not None and got != (1, 1):
-        raise RuntimeError(f"{tag}: expected one kernel and one memset a "
-                           f"call, the trace shows {got}")
+    if got is not None and got != (1, memsets):
+        raise RuntimeError(f"{tag}: expected one kernel and {memsets} "
+                           f"memset(s) a call, the trace shows {got}")
 
 
 def main_path(s, tag, make, run_devices, t0):
@@ -3490,6 +3581,58 @@ def spmm_path(s, tag, m, fn, devices, k):
     return Xt
 
 
+def urand20(h, small):
+    """The ``urand20`` cell's matrix at seed 1 (``spbench/``'s generator
+    and configuration; ``small``: scale 14)."""
+    from spbench.generators import urand
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "spbench", "configs", "urand20.json")) as f:
+        cfg = json.load(f)
+    if small:
+        cfg["scale"] = 14
+    g = urand.generate(cfg, np.random.default_rng([1, 0]))
+    return h.CSRMatrix(g.row_ptr, g.col_ind, g.values, g.nr_rows, g.nr_cols)
+
+
+def band8(h, n):
+    """n rows of 8 diagonals (offsets -3..4): each row one full chunk of
+    the pack, so its tiles fill and the byte rule keeps #1."""
+    rows = np.repeat(np.arange(n), 8)
+    cols = rows + np.tile(np.arange(-3, 5), n)
+    ok = (cols >= 0) & (cols < n)
+    vals = np.random.default_rng(2).standard_normal(int(ok.sum()))
+    return h.CSRMatrix.from_coo(rows[ok], cols[ok], vals.astype(np.float32),
+                                n, n)
+
+
+def fused_rows_main(s, small, t0):
+    """The rows kernel against #1 where the byte rule decides: the
+    ``urand20`` cell's matrix (the rule takes the rows kernel) and a band
+    of 8 diagonals (it keeps #1), each driven as a main path, then both
+    kernels timed on the device's own inputs."""
+    st = s.st
+
+    def fused_f32(mat):
+        sm = st.SparseMatrix(mat, st.SpmvConfig(dtype=np.float32),
+                             device=s.dev)
+        if sm.fused_device is None or sm.heavy_device is not None:
+            raise RuntimeError("expected the fused device")
+        return sm, [sm.fused_device]
+
+    for tag, make in (("urand20", lambda: urand20(s.h, small)),
+                      ("band of 8 diagonals",
+                       lambda: band8(s.h, 1 << (14 if small else 20)))):
+        m, _, xt, sm, _ = main_path(s, tag, make, fused_f32, t0)
+        d = sm.fused_device
+        lib_ms = s.whole_call(sm, m, xt, tag)
+        s.rows_kernel(d, xt, tag, lib_ms)
+        s.profile(tag, lambda: sm @ xt)
+        one_launch(s, tag, lambda: sm @ xt,
+                   memsets=int(d.kernel == "tiles"))
+        del m, xt, sm, d
+    print(f"phase rows kernel: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
 def run(device, hbm: float, small: bool = False):
     """Every phase on ``device``; ``small`` cuts the full-size matrices (a
     rehearsal of the control flow, not a measurement)."""
@@ -3528,8 +3671,10 @@ def run(device, hbm: float, small: bool = False):
     lib_ms = s.whole_call(sm, m, xt, "headline")
     # times first: a profiler trace slows the host's later launches
     s.fused_kernel(sm.fused_device, sm.prepare_x(x), "headline", lib_ms)
+    s.rows_kernel(sm.fused_device, xt, "headline", lib_ms)
     s.profile("headline", lambda: sm @ xt)
-    one_launch(s, "headline", lambda: sm @ xt)
+    one_launch(s, "headline", lambda: sm @ xt,
+               memsets=int(sm.fused_device.kernel == "tiles"))
     checkpoint_save(s, "headline", sm.fused_device, m, x)
     reference_programs_headline(s, m, x, xt, sm)
     print(f"phase headline: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3691,6 +3836,7 @@ def run(device, hbm: float, small: bool = False):
           f"{_agree(yk, yr):.3e}; the device's one launch vs its plain "
           f"version {_agree(yd, light.spmv_blocks_reference(xt)):.3e}",
           flush=True)
+    s.rows_kernel(light, xt, "web graph (webbase-1M), light rows", None)
     s.gstream(sm.heavy_device, xt, "web graph (webbase-1M), heavy rows")
     tag = "web graph SpMM k=4 (webbase-1M)"
     Xt = spmm_path(s, tag, m, lambda X: sm @ X,
@@ -3706,6 +3852,7 @@ def run(device, hbm: float, small: bool = False):
     s.gstream_multi(sm.heavy_device, Xt, tag + ", heavy rows")
     print(f"phase web graph: {time.perf_counter() - t0:.1f} s", flush=True)
     del m, sm, light, Xt
+    fused_rows_main(s, small, time.perf_counter())
 
     # ---- f64 (DOUBLE=1): the regimes, then the headline and wide x in f64
     t0 = time.perf_counter()

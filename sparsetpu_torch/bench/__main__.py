@@ -59,10 +59,10 @@ def run(device: str, small: bool) -> dict:
     per_call = (back_ms if back_ms is not None else one_ms) * 1e-3
     gnnz = 0.0 if errors else m.nr_nzeros / per_call / 1e9
     roofline = None
-    if dev.type == "cuda":
-        floor_s = sm.packed.storage_bytes() / (hbm_gbps(dev) * 1e9)
-        roofline = round(floor_s / per_call, 3) if gnnz else 0.0
     d = sm.device_module
+    if dev.type == "cuda":
+        floor_s = d.bytes_a_call / (hbm_gbps(dev) * 1e9)
+        roofline = round(floor_s / per_call, 3) if gnnz else 0.0
     final = getattr(d, "final", None)
     return {
         "metric": "spmv_throughput",

@@ -18,9 +18,11 @@ and a call at a time (``call_ms``, ``bench/harness.py``):
   blocks+flat+slice   then y's rows sliced out; in PyTorch both are views,
                       no device work, so they time ``blocks`` again (the
                       TPU script's XLA reshapes cost time; these cannot)
-  dev.spmv            ``FusedDevice.spmv`` on a prepared x: the blocks, the
-                      rows (one slice, or ``torch.cat`` on non-uniform slabs)
-                      and the spills' ``index_add_``
+  dev.spmv            ``FusedDevice.spmv`` on a prepared x as #1 answers it
+                      (the device's one launch, the spills in it, then the
+                      rows: one slice, or ``torch.cat`` on non-uniform
+                      slabs), also where the device's rule runs the rows
+                      kernel (``kernels/fused_rows.py``)
   fwd@<variant>       the forward at #17's tile-base variants
                       (exp_asm_r5.py:107-141): random, randmeta, shuffled,
                       interleave, stride37 (``fwd`` is ``real``)
@@ -578,7 +580,8 @@ def _phases(inp: dict, ladder: dict, grids) -> list:
         ("blocks+flat", lambda: dev.blocks(x2).view(1, -1), blocks_bytes),
         ("blocks+flat+slice",
          lambda: dev.blocks(x2).view(-1)[:n].view(1, -1), blocks_bytes),
-        ("dev.spmv", lambda: dev.spmv(x2, x_is_packed=True),
+        ("dev.spmv",
+         lambda: dev._rows(dev.spmv_blocks(x2, x_is_packed=True)),
          blocks_bytes + spill_bytes)]
     for name, arrays in inp.get("tile_bases", {}).items():
         if name != "real":

@@ -162,12 +162,12 @@ def bench_spmv(matrix, name: str = "random", config=None, repeats: int = 50,
     y = y.cpu().numpy()
 
     total_ms = call_ms(lambda: sm.spmv_packed_x(xp), dev, repeats)
-    if sm.fused_device is not None:
+    fd = sm.fused_device
+    if fd is not None:
         # the hybrid keeps x unpacked (its heavy rows' device pads it
         # another way): the fused kernel of its light rows takes its own
-        xf = xp if sm.heavy_device is None else \
-            sm.fused_device.prepare_x(x)
-        kernel_ms = call_ms(lambda: sm.fused_device.blocks(xf), dev, repeats)
+        xf = xp if sm.heavy_device is None else fd.prepare_x(x)
+        kernel_ms = call_ms(lambda: fd.launch(xf), dev, repeats)
         finish_ms = max(total_ms - kernel_ms, 0.0)
     else:
         kernel_ms, finish_ms = total_ms, 0.0
@@ -177,7 +177,8 @@ def bench_spmv(matrix, name: str = "random", config=None, repeats: int = 50,
         matrix.nr_nzeros / max(matrix.nr_rows, 1))
     errors = _host.verification(y_gold, y, diff_thres=atol, rel_thres=rtol)
     nnz = matrix.nr_nzeros
-    data_mb = (sm.packed.storage_bytes() if sm.packed is not None
+    data_mb = (fd.bytes_a_call if fd is not None
+               else sm.packed.storage_bytes() if sm.packed is not None
                else nnz * 8) / 1e6
     if sm.packed is not None and sm.dtype == torch.float64:
         # the f64 devices stream the hi + lo plane as one 8-byte value

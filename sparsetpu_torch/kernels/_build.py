@@ -3,7 +3,9 @@
 The fused SpMV, the k-plane forward and the row-sorted final
 (``final_rows.cu``, the classic devices' final level, one plane or k)
 template their kernels on the real type: one source holds a kernel's f32
-and f64 (native FP64) forms, each behind its own entry point; the classic
+and f64 (native FP64) forms, each behind its own entry point; the fused
+SpMV's second design, over a row map of the pack's live slots
+(``fused_rows.cu``), is f32 only; the classic
 forward's f64 form is its own kernel over the live slots
 (``gstream_spmv.cu``).  The BSR
 partials (``bsr_spmv.cu``) are f32 only, as the TPU's BSR device; the
@@ -122,6 +124,9 @@ def library() -> _Library:
     lib.fused_spmv_prepare.argtypes = [p]
     lib.fused_spmv_run.restype = i
     lib.fused_spmv_run.argtypes = [p, p, ll, p, p, p]
+    # the rows kernel: #1's function over a FusedDevice's row map
+    lib.fused_rows_launch.restype = i
+    lib.fused_rows_launch.argtypes = [p] * 5 + [i] * 4 + [p, p]
     lib.gstream_spmv_launch.restype = i
     lib.gstream_spmv_launch.argtypes = [p, i] + [p] * 5 + [ll] + [i] * 4 \
         + [p]

@@ -18,6 +18,12 @@ for tensors on the CPU and for comparisons on the card, and
 device's calls in plain PyTorch.  ``fused_spmv_f64`` is the fused kernel in
 native FP64 (the f32 wrapper hands it f64 inputs); its plain version is
 ``fused_spmv_reference``, which runs in the inputs' real type.
+
+On a card, an f32 ``FusedDevice`` answers ``spmv`` with the rows kernel
+(``kernels/fused_rows.py``, ``csrc/fused_rows.cu``: a CSR of the pack's
+live slots in y's row order, built at upload) where that map and its
+gathers move fewer bytes a call than the pack (``FusedDevice.traffic``);
+``FusedDevice.kernel`` names the choice.  The blocks, the SpMM and the free wrappers run #1.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from .. import _host
 from ..utils.device import CUDA, pick_device
 from ..utils.timing import SETUP, span
 from ._build import check, library, vector_width
+from .fused_rows import FusedRows, fused_rows_spmv
 
 LANES = _host.LANES
 CHUNK = _host.CHUNK
@@ -42,6 +49,8 @@ SPMM_PLANE_BYTES_MAX = 12 << 20
 # the JAX package's f64 column limit (``spmv_fused.py:485``): above it the
 # f64 matrix goes to the classic f64 device, as there
 MAX_RESIDENT_COLS_DF64 = 700_000
+# the bytes an L2 sector holds: what one scattered 4-byte gather moves
+SECTOR = 32
 
 # (name, dtype) of each kernel input, in the C entry point's order; the
 # values are float64 on the f64 device
@@ -503,6 +512,13 @@ def _check_pack(p) -> None:
         raise ValueError("spill indices out of range")
 
 
+def pick_kernel(traffic: dict) -> str:
+    """The kernel of an f32 device's ``spmv`` on a card, from its
+    ``FusedDevice.traffic``: ``"rows"`` where the row map and its gathers
+    move fewer bytes a call than the pack, else ``"tiles"``."""
+    return "rows" if traffic["rows"] < traffic["tiles"] else "tiles"
+
+
 def spill_positions(p) -> np.ndarray:
     """Each spill's flat position in the slab blocks (int64): y's row r
     lies in the slab s whose rows hold it, at s*OBp*128 + r - (slab_bounds[s]
@@ -527,7 +543,14 @@ class FusedDevice(nn.Module):
     built once too, so a call checks only x, allocates y's blocks and the
     kernel's workspace, and launches.  The upload is ``SETUP``'s phase
     ``upload``; a call opens ``sparsetpu.device.spmv`` and, around the
-    checks and the launch, ``sparsetpu.launch.<kernel>``."""
+    checks and the launch, ``sparsetpu.launch.<kernel>``.
+
+    ``kernel`` names what ``spmv`` runs: ``"rows"``, the rows kernel over
+    ``rows`` (a ``FusedRows`` map built here), where the device is a card,
+    the values are f32 and the map and its gathers move fewer bytes a call
+    than the pack (``traffic``); else ``"tiles"``, #1 (``rows`` is then None).  CPU
+    tensors keep #1's plain version, so CPU routes agree with the JAX
+    package's; ``spmv_blocks``, ``blocks`` and the SpMM run #1 always."""
 
     @SETUP.phase("upload")
     def __init__(self, packed, interpret=False, *, device=CUDA):
@@ -550,6 +573,7 @@ class FusedDevice(nn.Module):
             else fused_spmv
         self._launch_span = "launch." + self._kernel.__name__
         self._plan = self._dims = None
+        self.rows = None
         self._build_plan()
 
     @staticmethod
@@ -590,12 +614,46 @@ class FusedDevice(nn.Module):
                           F2A=F2A, F1S=m.F1S, OBp=m.OBp,
                           fin_direct=m.fin_direct)
         if self.device.type != "cuda":
+            self.kernel, self.rows = "tiles", None
             return
         spills = ((self.spill_pos, self.spill_col, self.spill_val)
                   if self.n_spills else None)
         self._plan = _plan(t, self._dims, n_out=m.n_slabs * m.OBp * LANES,
                            counts=(self.fin1_cnt, self.fin2_cnt),
                            spills=spills)
+        self.kernel = "tiles"
+        if self.dtype == torch.float32:
+            self.kernel = pick_kernel(self.traffic())
+        if self.kernel == "tiles":
+            self.rows = None
+        elif self.rows is None:     # a move (``_apply``) moves the map too
+            self.rows = FusedRows.build(self)
+
+    def traffic(self) -> dict:
+        """The bytes a call moves on each layout, from counts the device
+        holds.  ``tiles``, #1 over the pack: a value and two metadata
+        bytes a forward slot; 2 B a live finish slot (``fin1_cnt``,
+        ``fin2_cnt``); the chunk sums and stage-1 partials written to the
+        workspace and read back; the slab blocks zeroed and written; a
+        spill's position, column and value.  Its gathers read each tile's
+        window of x, which the pack keeps small, through L1.  ``rows``,
+        the rows kernel over ``FusedRows``: a column and a value a live
+        slot (a nonzero value or a spill), a row pointer and a y element a
+        row, and the 32-byte sector of x that each live slot's gather
+        moves from the L2 (the map's order keeps no window)."""
+        m, d = self.meta, self._dims
+        elt = self.values.element_size()
+        tile = CHUNK * LANES
+        fin = int(self.fin2_cnt.sum()) + (
+            0 if m.fin_direct else int(self.fin1_cnt.sum()))
+        ws = d["n_steps"] * (m.T * m.planes
+                             + (0 if m.fin_direct else m.F1S)) * LANES
+        tiles = ((elt + 2) * d["n_steps"] * m.T * tile + 2 * fin * tile
+                 + 2 * elt * (ws + m.n_slabs * m.OBp * LANES)
+                 + (16 + elt) * self.n_spills)
+        live = int((self.values != 0).sum()) + self.n_spills
+        return {"tiles": tiles,
+                "rows": (4 + elt) * (live + m.nr_rows) + SECTOR * live}
 
     def _apply(self, *args, **kwargs):
         # moving the buffers moves the addresses the plan holds
@@ -711,10 +769,30 @@ class FusedDevice(nn.Module):
 
     def spmv(self, x, x_is_packed: bool = False) -> torch.Tensor:
         """y = A @ x (nr_rows,): x unpadded, or prepared (``prepare_x``)
-        with ``x_is_packed``; a view of the slab blocks when the slabs are
-        uniform."""
+        with ``x_is_packed``.  On a ``"rows"`` device y is the rows
+        kernel's output; else a view of the slab blocks when the slabs
+        are uniform."""
         with span("device.spmv"):
+            if self.kernel == "rows":
+                return fused_rows_spmv(self._x(x, x_is_packed).view(-1),
+                                       self.rows)
             return self._rows(self.spmv_blocks(x, x_is_packed))
+
+    def launch(self, x2: torch.Tensor) -> torch.Tensor:
+        """The kernel ``spmv`` runs, alone, on a prepared x: the rows
+        kernel's y on a ``"rows"`` device, else #1's slab blocks without
+        the spills (``blocks``)."""
+        if self.kernel == "rows":
+            return fused_rows_spmv(x2.view(-1), self.rows)
+        return self.blocks(x2)
+
+    @property
+    def bytes_a_call(self) -> int:
+        """The bytes of the layout ``spmv`` streams: the row map's
+        (``FusedRows.nbytes``) on a ``"rows"`` device, else the pack's."""
+        if self.kernel == "rows":
+            return self.rows.nbytes
+        return self.meta.storage_bytes()
 
     # -- SpMM (counterpart of sparsetpu/kernels/spmv_fused.py:423-474) ------
     def spmm_applicable(self, k: int) -> bool:

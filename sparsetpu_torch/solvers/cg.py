@@ -204,9 +204,11 @@ def _iterate(s: _State, mv, pre) -> None:
 def _counters():
     """The kernel wrappers that count their launches in ``.launches`` (a
     count, or a ``Counter`` by form)."""
-    from ..kernels import bsr, final_rows, spmm, spmv_fused, spmv_gstream
+    from ..kernels import (bsr, final_rows, fused_rows, spmm, spmv_fused,
+                           spmv_gstream)
     return (spmv_fused.fused_spmv, spmv_fused.fused_spmv_f64,
-            spmv_fused.fused_spmm, spmv_gstream.gstream_chunk_sums,
+            spmv_fused.fused_spmm, fused_rows.fused_rows_spmv,
+            spmv_gstream.gstream_chunk_sums,
             spmv_gstream.live_slot_sums, final_rows.final_rows,
             final_rows.final_rows_multi, spmm.gstream_chunk_sums_multi,
             spmm.gstream_chunk_sums_multi_f64, bsr.bsr_partials)

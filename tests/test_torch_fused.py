@@ -24,6 +24,7 @@ import torch
 import sparsetpu_torch as st
 from sparsetpu_torch._host import (CSRMatrix, default_tolerance, pack_fused,
                                    random_csr, spmv_gold, verification)
+from sparsetpu_torch.kernels.fused_rows import fused_rows_spmv
 from sparsetpu_torch.kernels.spmv_fused import (FusedDevice, fused_spmv,
                                                 fused_spmv_reference,
                                                 slabs_uniform)
@@ -260,10 +261,14 @@ def test_kernel_matches_plain_on_card(cuda, case):
 def test_sparse_matrix_on_card_matches_gold(cuda):
     m = random_csr(4000, 20_000, density=0.002, seed=1, dtype=np.float32)
     x = np.random.default_rng(0).standard_normal(m.nr_cols)
-    before = fused_spmv.launches
-    y = st.SparseMatrix(m, device=cuda) @ x
+    sm = st.SparseMatrix(m, device=cuda)
+    # the device's byte rule picks #1 or the rows kernel: one launch of it
+    kernel = {"tiles": fused_spmv,
+              "rows": fused_rows_spmv}[sm.fused_device.kernel]
+    before = kernel.launches
+    y = sm @ x
     assert y.device.type == "cuda" and y.shape == (m.nr_rows,)
-    assert fused_spmv.launches == before + 1
+    assert kernel.launches == before + 1
     _gold_ok(m, x, y.cpu().numpy())
 
 
@@ -331,11 +336,13 @@ def _kernels_a_call(fn):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])
 def test_one_launch_a_call_on_card(cuda, dtype):
-    """``sm @ x`` on a fused matrix: one kernel and one memset."""
+    """``sm @ x`` on a fused matrix: one kernel, and one memset where #1
+    answers it (the rows kernel writes every row: no memset)."""
     m = random_csr(4000, 20_000, density=0.002, seed=1, dtype=dtype)
     sm = st.SparseMatrix(m, device=cuda)
     assert sm.fused_device is not None
     x = torch.as_tensor(np.random.default_rng(0).standard_normal(m.nr_cols),
                         dtype=getattr(torch, np.dtype(dtype).name),
                         device=cuda)
-    assert _kernels_a_call(lambda: sm @ x) == (1, 1)
+    memsets = int(sm.fused_device.kernel == "tiles")
+    assert _kernels_a_call(lambda: sm @ x) == (1, memsets)
